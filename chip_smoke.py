@@ -5,16 +5,28 @@
 
 Phases, one line each:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build: compile the kernels from `tbraymarcherplugin_tpu_torch/csrc`;
+  2. build: compile the kernels from `tbraymarcherplugin_tpu_torch/csrc`
+     (one nvcc per source, all at once);
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
      at the shapes of the main path (max abs error against a stated limit,
      CUDA-event times of both);
   4. slice: the full lit frame (256^3 CT phantom, bone TF, window
      (0.5, 0.8), one light, 1920x1080, 150 planes, jitter on) through
      `Renderer`: one illumination rebuild, four orbit frames, one light
-     move; every kernel's launch counter must rise; frames are checked
-     for finiteness, coverage and distinct checksums, against the port's
-     all-plain path on the card, and, on a small scene, against the CPU.
+     move; every forward kernel's launch counter must rise; frames are
+     checked for finiteness, coverage and distinct checksums, against the
+     port's all-plain path on the card, and, on a small scene, against the
+     CPU;
+  5. fwd+bwd: the differentiable frame of the same scene (bf16 planes, no
+     jitter) through `models.pipeline.render_lit_scene`: three
+     `loss.backward()` steps of the L2 loss against the frame at window
+     (0.5, 0.8), at window centers 0.55, 0.56, 0.57; every leaf's gradient
+     must be finite and nonzero, (loss, sum |dTF|) must differ from step to
+     step and all eight kernels' counters must rise; then each backward
+     kernel K5-K8 against its plain version on the inputs the path gave it
+     (and against itself: two launches must give the same bits),
+     the gradients against the all-plain path on the card, and a 24^3
+     fwd+bwd on the card against the CPU.
 Then a JSON line of the kernels, the card line, and the result line.
 
 There is no CPU path: without a CUDA device the script exits with an error.
@@ -33,6 +45,7 @@ from unittest import mock
 DIMS = (256, 256, 256)
 WIDTH, HEIGHT, STEPS = 1920, 1080, 150
 WINDOW = (0.5, 0.8)
+FWD_BWD_CENTERS = (0.55, 0.56, 0.57)
 LIGHT_DIR = (0.3, 0.1, -0.95)
 CAM_POS = (0.1, -2.3, 0.4)
 FOV = 40.0
@@ -43,9 +56,26 @@ FOV = 40.0
 # exp/log (K1, K3). K2 and K4 have no transcendentals and agree exactly.
 LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
           "light_scan": 1e-5}
+# Backward kernels against their plain versions on the same inputs, as the
+# largest error over the largest plain value of each output (K5: dW, dL, dTF,
+# d window; K6: d rows; K7: d opacity, sum m, m_0; K8: d values, dTF,
+# d window). The sums run in another order than the plain versions' (K5,
+# K6, K8), and K5/K8 meet expf/logf ulps; K5's dW and dL are bf16 on this
+# path, where an ulp of float32 can round to the next bf16 value: one bf16
+# ulp at the largest value is 2^-8. K7 does the plain version's operations
+# in its order and agrees exactly.
+BWD_LIMITS = {"composite_bwd": 2.0 ** -8, "row_lerp_bwd": 1e-5,
+              "light_scan_bwd": 0.0, "tf_alpha_bwd": 1e-4}
 # Kernel frame vs all-plain frame, RGBA: K3's exp/log ulps reach the light
 # volume and move the frame by 7.5e-5 on the bench scene (PERF.md).
 FRAME_VS_PLAIN_LIMIT = 1e-4
+# Gradients of the kernel path vs the all-plain path on the card (bf16
+# planes in both) and vs the CPU at 24^3 (float32 planes in both), each as
+# |got - want|_2 / |want|_2: an ulp of float32 between the two (expf/logf,
+# sum order) can round a bf16 plane cotangent to the next value (2^-8
+# relative) or flip one pixel's 0.95 snap, which moves that pixel's whole
+# contribution.
+GRAD_VS_PLAIN_LIMIT = 1e-2
 # bf16 plane storage (card) vs float32 (CPU), the JAX package's own bounds
 # for bf16 against f32 (tests/test_shearwarp_pallas.py::test_fused_bf16_close)
 SMALL_MEAN_LIMIT, SMALL_MAX_LIMIT = 2e-3, 0.06
@@ -55,12 +85,20 @@ REPLACES = {
     "row_lerp": "tbraymarcherplugin_tpu/ops/pallas_warp.py:34",
     "tf_alpha": "tbraymarcherplugin_tpu/ops/pallas_tf.py:29",
     "light_scan": "tbraymarcherplugin_tpu/ops/pallas_lighting.py:57",
+    "composite_bwd": "tbraymarcherplugin_tpu/ops/shearwarp_grad.py:109",
+    "row_lerp_bwd": "tbraymarcherplugin_tpu/ops/pallas_warp.py:93",
+    "light_scan_bwd": "tbraymarcherplugin_tpu/ops/pallas_lighting.py:184",
+    "tf_alpha_bwd": "tbraymarcherplugin_tpu/ops/pallas_tf.py:291",
 }
 SOURCES = {
     "composite": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
     "row_lerp": "tbraymarcherplugin_tpu_torch/csrc/row_lerp.cu",
     "tf_alpha": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha.cu",
     "light_scan": "tbraymarcherplugin_tpu_torch/csrc/light_scan.cu",
+    "composite_bwd": "tbraymarcherplugin_tpu_torch/csrc/composite_bwd.cu",
+    "row_lerp_bwd": "tbraymarcherplugin_tpu_torch/csrc/row_lerp_bwd.cu",
+    "light_scan_bwd": "tbraymarcherplugin_tpu_torch/csrc/light_scan_bwd.cu",
+    "tf_alpha_bwd": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha_bwd.cu",
 }
 
 
@@ -91,24 +129,216 @@ def host_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def check(ok, msg):
     if not ok:
         raise AssertionError(msg)
 
 
+def kernel_table():
+    """(name, module, wrapper name) of each kernel, K1-K8."""
+    from tbraymarcherplugin_tpu_torch.ops import composite, light_scan
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad, tf_alpha
+    from tbraymarcherplugin_tpu_torch.ops import warp
+
+    return (("composite", composite, "composite"),
+            ("row_lerp", warp, "row_lerp"),
+            ("tf_alpha", tf_alpha, "windowed_tf_alpha"),
+            ("light_scan", light_scan, "propagate_face_scan"),
+            ("composite_bwd", shearwarp_grad, "composite_bwd"),
+            ("row_lerp_bwd", warp, "row_lerp_bwd"),
+            ("light_scan_bwd", light_scan, "propagate_face_scan_bwd"),
+            ("tf_alpha_bwd", tf_alpha, "windowed_tf_alpha_bwd"))
+
+
 @contextlib.contextmanager
-def all_plain(K1, K2, K3, K4, Lt):
-    """Swap each kernel wrapper for its plain PyTorch version under the
-    names its callers bind, so the whole path runs plain on the card."""
+def all_plain():
+    """Swap each kernel wrapper for its plain PyTorch version in the module
+    that defines it (every caller looks it up there at call time), so the
+    whole path runs plain on the card."""
     with contextlib.ExitStack() as stack:
-        for mod, name, fn in ((K1, "composite", K1.composite_plain),
-                              (K2, "row_lerp", K2.row_lerp_plain),
-                              (Lt, "windowed_tf_alpha",
-                               K3.windowed_tf_alpha_plain),
-                              (Lt, "propagate_face_scan",
-                               K4.propagate_face_scan_plain)):
-            stack.enter_context(mock.patch.object(mod, name, fn))
+        for _, mod, fn in kernel_table():
+            stack.enter_context(
+                mock.patch.object(mod, fn, getattr(mod, fn + "_plain")))
         yield
+
+
+@contextlib.contextmanager
+def capture_calls(calls: dict, names):
+    """Record the arguments of every call of the named kernels' wrappers
+    (the wrapper still runs), for replaying them against the plain
+    versions."""
+    with contextlib.ExitStack() as stack:
+        for name, mod, fn in kernel_table():
+            if name not in names:
+                continue
+            real = getattr(mod, fn)
+
+            def spy(*args, _real=real, _name=name, **kw):
+                calls.setdefault(_name, []).append((args, kw))
+                return _real(*args, **kw)
+
+            spy.launches = 0  # the wrapper counts on the name it is bound to
+            stack.enter_context(mock.patch.object(mod, fn, spy))
+        yield
+
+
+def replay_bwd(torch, name, real, plain, used, card, results):
+    """Hold backward kernel ``name`` against its plain version, and against
+    itself, on the recorded calls ``used``; time both."""
+    rel, abs_err = 0.0, 0.0
+    for args, kw in used:
+        got_all, again, want_all = (
+            as_tuple(f(*args, **kw)) for f in (real, real, plain))
+        check(all(torch.equal(a, b) for a, b in zip(got_all, again)),
+              f"{name}: two launches on the same inputs differ")
+        for got, want in zip(got_all, want_all):
+            d = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            check(math.isfinite(d), f"{name}: non-finite output")
+            abs_err = max(abs_err, d)
+            rel = max(rel, d / scale if scale > 0 else d)
+    ms = sum(cuda_ms(torch, lambda a=a, k=k: real(*a, **k), 5)
+             for a, k in used)
+    plain_ms = sum(cuda_ms(torch, lambda a=a, k=k: plain(*a, **k), 1)
+                   for a, k in used)
+    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    print(f"[kernel] {name}: max_abs_err {abs_err:.3e}, relative to the "
+          f"plain output's max {rel:.3e} (limit {BWD_LIMITS[name]:.1e}) | "
+          f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | {card}",
+          flush=True)
+    check(rel <= BWD_LIMITS[name], f"{name} disagrees with its plain version")
+
+
+def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
+    """Phase 5 (see the module docstring); adds K5-K8 to ``results``."""
+    from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+    from tbraymarcherplugin_tpu_torch.ops import synthetic
+    from tbraymarcherplugin_tpu_torch.ops import transfer as T
+    from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
+
+    fields = ("volume", "tf_table", "window_center", "window_width",
+              "light_intensities")
+
+    def make_step(vol, width, height, dtype=None, **plan_kw):
+        """An L2 fwd+bwd step of the lit frame of ``vol`` against its frame
+        at window (0.5, 0.8), planes stored as ``dtype`` (default: bf16 on
+        the card): center -> (loss, gradient of each leaf, frame)."""
+        dims = tuple(vol.shape)
+        dev = vol.device
+        plan = SW.plan_shearwarp(cam, transform, dims, dims, width, height,
+                                 **plan_kw)
+        rays = setup_rays(cam, transform, width, height)
+        plans = (PP.LightPlan.create(LIGHT_DIR, dims),)
+
+        def params(center):
+            return PP.RenderParams(
+                vol.detach(), T.tf_ct_bone(device=dev),
+                torch.tensor(center, device=dev),
+                torch.tensor(WINDOW[1], device=dev),
+                torch.tensor([1.0], device=dev))
+
+        def render(p):
+            return PP.render_lit_scene(p, rays, clip.center, clip.direction,
+                                       plans, dims, shearwarp_plan=plan,
+                                       shearwarp_dtype=dtype)
+
+        with torch.no_grad():
+            target = render(params(WINDOW[0]))
+
+        def step(center):
+            p = params(center)
+            for f in fields:
+                getattr(p, f).requires_grad_()
+            img = render(p)
+            loss = ((img - target) ** 2).mean()
+            loss.backward()
+            return (loss.detach(), [getattr(p, f).grad for f in fields],
+                    img.detach())
+
+        return step
+
+    table = kernel_table()
+    step = make_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
+    for _, mod, fn in table:
+        getattr(mod, fn).launches = 0
+    outs, step_ms = [], []
+    for c in FWD_BWD_CENTERS:
+        out, ms = host_ms(torch, lambda c=c: step(c))
+        outs.append(out)
+        step_ms.append(ms)
+    launches = {name: getattr(mod, fn).launches for name, mod, fn in table}
+    print(f"[fwd+bwd] launches {launches} | ms per step (host clock) "
+          f"{', '.join(f'{m:.2f}' for m in step_ms)} | {card}", flush=True)
+    for name, _, _ in table:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the fwd+bwd path")
+    keys = []
+    for loss, grads, _ in outs:
+        for f, g in zip(fields, grads):
+            check(g is not None and bool(torch.isfinite(g).all())
+                  and bool((g != 0).any()), f"gradient of {f}: {g}")
+        keys.append((float(loss), float(grads[1].abs().sum())))
+    print(f"[fwd+bwd] (loss, sum |dTF|) per step: {keys}", flush=True)
+    check(len(set(keys)) == len(keys), f"steps repeat: {keys}")
+
+    # K5-K8 on the inputs the path gave them.
+    calls = {}
+    bwd = table[4:]
+    with capture_calls(calls, [name for name, _, _ in bwd]):
+        step(FWD_BWD_CENTERS[0])
+    # the captured inputs are autograd intermediates: without no_grad the
+    # plain versions would record a graph of every plane's temporaries
+    with torch.no_grad():
+        for name, mod, fn in bwd:
+            # K6 runs once per warp pass (both are timed, as K2's); K7 and
+            # K8 once per light face (the first face is timed, as K4's)
+            used = calls[name] if name == "row_lerp_bwd" else calls[name][:1]
+            replay_bwd(torch, name, getattr(mod, fn),
+                       getattr(mod, fn + "_plain"), used, card, results)
+            results[name]["launches"] = launches[name]
+    del calls
+
+    # The gradients against the all-plain path on the card.
+    with all_plain():
+        _, want, _ = step(FWD_BWD_CENTERS[0])
+    errs = {f: float((a - b).norm() / b.norm())
+            for f, a, b in zip(fields, outs[0][1], want)}
+    print(f"[fwd+bwd] gradients vs all-plain path on the card, |d|_2 / "
+          f"|plain|_2: {errs} (limit {GRAD_VS_PLAIN_LIMIT:.0e})", flush=True)
+    check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
+          "kernel gradients != plain gradients")
+    del outs, want
+
+    # Small scene, the card against the CPU: the image of the fwd+bwd path
+    # with bf16 planes within phase 4's bounds; the gradients with float32
+    # planes on both (bf16 values move by up to half a TF texel, which moves
+    # a gradient by as much as the gradient itself).
+    small = torch.from_numpy(synthetic.ct_like_phantom((24, 24, 24), seed=0))
+    cpu = torch.device("cpu")
+    card_bf16 = make_step(small.to(volume.device), 64, 48, max_planes=20)
+    card_f32 = make_step(small.to(volume.device), 64, 48,
+                         dtype=torch.float32, max_planes=20)
+    on_cpu = make_step(small, 64, 48, max_planes=20)
+    c0 = FWD_BWD_CENTERS[0]
+    (_, _, img), (_, grads, _) = card_bf16(c0), card_f32(c0)
+    _, want, want_img = on_cpu(c0)
+    diff = (img.cpu() - want_img).abs()
+    errs = {f: float((a.cpu() - b).norm() / b.norm())
+            for f, a, b in zip(fields, grads, want)}
+    print(f"[small] fwd+bwd, card vs CPU at 24^3, 64x48: image (bf16 planes) "
+          f"mean {float(diff.mean()):.2e} (limit {SMALL_MEAN_LIMIT:.0e}), max "
+          f"{float(diff.max()):.2e} (limit {SMALL_MAX_LIMIT:.0e}); gradients "
+          f"(float32 planes), |d|_2 / |CPU|_2: {errs} (limit "
+          f"{GRAD_VS_PLAIN_LIMIT:.0e})", flush=True)
+    check(float(diff.mean()) < SMALL_MEAN_LIMIT
+          and float(diff.max()) < SMALL_MAX_LIMIT, "card != CPU on 24^3")
+    check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
+          "card gradients != CPU gradients on 24^3")
 
 
 def main() -> int:
@@ -294,7 +524,7 @@ def main() -> int:
     check(len(set(sums)) == len(sums), f"frame checksums repeat: {sums}")
 
     rp = make_renderer()
-    with all_plain(K1, K2, K3, K4, Lt):
+    with all_plain():
         ref = rp.render(cams[0], WIDTH, HEIGHT)
     rk2 = make_renderer()
     got = rk2.render(cams[0], WIDTH, HEIGHT)
@@ -323,9 +553,13 @@ def main() -> int:
           and float(diff.max()) < SMALL_MAX_LIMIT, "card != CPU on 24^3")
     torch.cuda.synchronize()
 
+    # --- 5. fwd+bwd --------------------------------------------------------
+    fwd_bwd_phase(torch, volume, cam, transform, clip, card, results)
+    torch.cuda.synchronize()
+
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
-             **results[n]) for n in names
+             **results[n]) for n, _, _ in kernel_table()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

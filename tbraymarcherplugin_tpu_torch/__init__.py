@@ -1,5 +1,6 @@
-"""TBRaymarcherPlugin on PyTorch and CUDA: the lit shear-warp frame and its
-illumination rebuild, with hand-written kernels for NVIDIA Hopper (sm_90a).
+"""TBRaymarcherPlugin on PyTorch and CUDA: the lit shear-warp frame, its
+illumination rebuild and the differentiable frame with its backward, with
+hand-written kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package ``tbraymarcherplugin_tpu``, which stays the
 reference. This package imports torch and numpy, never jax. Tensors live
@@ -18,12 +19,18 @@ Module mapping (port <- JAX package):
 ``ops/synthetic.py``       ``ops/synthetic.py`` (``ct_like_phantom``)
 ``ops/shearwarp.py``       ``ops/shearwarp.py`` (plan, pre-shear, warp)
 ``ops/lighting.py``        ``ops/lighting.py``
-``ops/tf_alpha.py``        ``ops/pallas_tf.py`` (K3, ``csrc/tf_alpha.cu``)
+``ops/tf_alpha.py``        ``ops/pallas_tf.py`` (K3, ``csrc/tf_alpha.cu``;
+                           K8, ``csrc/tf_alpha_bwd.cu``)
 ``ops/light_scan.py``      ``ops/pallas_lighting.py`` (K4,
-                           ``csrc/light_scan.cu``)
+                           ``csrc/light_scan.cu``; K7,
+                           ``csrc/light_scan_bwd.cu``)
 ``ops/composite.py``       ``ops/shearwarp_pallas.py`` (K1,
                            ``csrc/composite.cu``)
-``ops/warp.py``            ``ops/pallas_warp.py`` (K2, ``csrc/row_lerp.cu``)
+``ops/shearwarp_grad.py``  ``ops/shearwarp_grad.py`` (K5,
+                           ``csrc/composite_bwd.cu``)
+``ops/warp.py``            ``ops/pallas_warp.py`` (K2, ``csrc/row_lerp.cu``;
+                           K6, ``csrc/row_lerp_bwd.cu``)
+``models/pipeline.py``     ``models/pipeline.py`` (shear-warp branches)
 ``convert.py``             (JAX state as numpy -> the port's state)
 ``renderer.py``            ``renderer.py`` (lit mode)
 =========================  ==============================================

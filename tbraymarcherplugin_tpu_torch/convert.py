@@ -60,3 +60,31 @@ def to_port_state(arrays: Mapping[str, np.ndarray], device=None) -> dict:
                                   arrays["transform_translation"],
                                   arrays["transform_scale"]),
     )
+
+
+def to_port_render_params(params: Mapping[str, np.ndarray], light_directions,
+                          light_dims, device=None,
+                          requires_grad: bool = False):
+    """Turn the JAX package's ``models.pipeline.RenderParams`` and its
+    lights into the port's, so both differentiate the same thing.
+
+    ``params`` maps each field of the JAX ``RenderParams`` (``volume``,
+    ``tf_table``, ``window_center``, ``window_width``,
+    ``light_intensities``) to a numpy array; ``light_directions`` are the
+    local-space directions the JAX ``LightPlan``s were made from. Returns
+    (:class:`~.models.pipeline.RenderParams` on ``device``, whose leaves
+    take gradients when ``requires_grad``, and the tuple of
+    :class:`~.models.pipeline.LightPlan`).
+    """
+    from .models.pipeline import LightPlan, RenderParams
+
+    def leaf(name):
+        t = torch.from_numpy(np.array(params[name], np.float32)).to(device)
+        return t.requires_grad_(requires_grad)
+
+    fields = ("volume", "tf_table", "window_center", "window_width",
+              "light_intensities")
+    plans = tuple(LightPlan.create(d, light_dims) for d in light_directions)
+    if len(plans) != np.size(params["light_intensities"]):
+        raise ValueError("one light direction per intensity")
+    return RenderParams(*(leaf(f) for f in fields)), plans

@@ -4,7 +4,9 @@
 // _scan_kernel (entry point propagate_face_scan_pallas). It computes
 //   c_k = shift2d_border(c_{k-1}, (off_x, off_y), border = alpha) * (1 - o_k)
 // with c_{-1} = alpha everywhere, and writes every c_k. A tap whose true
-// index lies outside [0, n) reads alpha.
+// index lies outside [0, n) reads alpha. alpha (intensity times face weight)
+// is read from device memory, so it can be a tensor that takes a gradient
+// without a host sync.
 //
 // Bound on the H100: the dependency from slice to slice. Each slice is a
 // 256 x 256 stencil (about 1 us of memory traffic), and no slice can start
@@ -20,41 +22,23 @@
 
 #include "common.cuh"
 
-__device__ __forceinline__ float tap_row(const float* __restrict__ prev,
-                                         int r, int c, int H, int W,
-                                         float alpha) {
-  if (prev == nullptr || r < 0 || r >= H) return alpha;
-  return prev[(size_t)r * W + c];
-}
-
 __global__ void light_scan_step(const float* __restrict__ prev,
                                 const float* __restrict__ op,
                                 float* __restrict__ out, int H, int W, int ix,
-                                float fx, int iy, float fy, float alpha) {
+                                float fx, int iy, float fy,
+                                const float* __restrict__ alpha_p) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= H || j >= W) return;
-  const float gx = __fsub_rn(1.0f, fx);
-  const float gy = __fsub_rn(1.0f, fy);
-  float t[2];
-  for (int dy = 0; dy < 2; ++dy) {
-    int c = j + iy + dy;
-    if (c < 0 || c >= W) {
-      t[dy] = alpha;  // second pass reads the border outside the columns
-    } else {
-      float s0 = tap_row(prev, i + ix, c, H, W, alpha);
-      float s1 = tap_row(prev, i + ix + 1, c, H, W, alpha);
-      t[dy] = __fadd_rn(__fmul_rn(s0, gx), __fmul_rn(s1, fx));
-    }
-  }
-  float shifted = __fadd_rn(__fmul_rn(t[0], gy), __fmul_rn(t[1], fy));
+  const float alpha = *alpha_p;
+  float shifted = tbr_shift2d(prev, alpha, alpha, i, j, H, W, ix, fx, iy, fy);
   size_t p = (size_t)i * W + j;
   out[p] = __fmul_rn(shifted, __fsub_rn(1.0f, op[p]));
 }
 
 TBR_API int tbr_light_scan(const float* op, float* out, int K, int H, int W,
-                           int ix, float fx, int iy, float fy, float alpha,
-                           void* stream) {
+                           int ix, float fx, int iy, float fy,
+                           const float* alpha, void* stream) {
   dim3 block(32, 8);
   dim3 grid((W + 31) / 32, (H + 7) / 8);
   const size_t hw = (size_t)H * W;

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile at first use, with ``nvcc`` for
-``sm_90a`` (Hopper), into one shared library with a plain C interface,
-loaded with ``ctypes``. Pointers come from ``data_ptr()`` and the stream
-from ``torch.cuda.current_stream().cuda_stream``. The library lands in
+All ``csrc/*.cu`` sources compile at first use with ``nvcc`` for
+``sm_90a`` (Hopper), one ``nvcc`` per source, all started together, and
+link into one shared library with a plain C interface, loaded with
+``ctypes``. Pointers come from ``data_ptr()`` and the stream from
+``torch.cuda.current_stream().cuda_stream``. The library lands in
 ``tbraymarcherplugin_tpu_torch/_build/`` under a name that hashes the
 sources and flags, so an edited source never loads a stale build.
 
@@ -28,21 +29,28 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+BUILD_TIMEOUT_S = 900
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _COMPOSITE = [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P]
+_COMPOSITE_BWD = [_P] * 12 + [_I] * 6 + [_F] * 4 + [_P]
 SIGNATURES = {
     "tbr_composite_f32": _COMPOSITE,
     "tbr_composite_bf16": _COMPOSITE,
+    "tbr_composite_bwd_f32": _COMPOSITE_BWD,
+    "tbr_composite_bwd_bf16": _COMPOSITE_BWD,
     "tbr_row_lerp": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "tbr_tf_alpha": [_P, _P, _P, ctypes.c_longlong] + [_F] * 5 + [_P],
-    "tbr_light_scan": [_P, _P] + [_I] * 4 + [_F, _I, _F, _F] + [_P],
+    "tbr_row_lerp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tbr_tf_alpha": [_P, _P, _P, _P, ctypes.c_longlong, _F, _P],
+    "tbr_tf_alpha_bwd": [_P] * 6 + [ctypes.c_longlong, _F, _I, _P],
+    "tbr_light_scan": [_P, _P] + [_I] * 4 + [_F, _I, _F, _P, _P],
+    "tbr_light_scan_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _F, _I, _F, _I, _F]
+    + [_P, _P],
+    "tbr_sum_rows": [_P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -72,6 +80,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtbr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile_all(nvcc: str, sources, out_dir: str) -> list[str]:
+    """Compile each source to an object, all ``nvcc`` processes at once;
+    kill every one still running if any fails or the build times out."""
+    procs = []
+    try:
+        for src in sources:
+            obj = os.path.join(out_dir, src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        deadline = time.monotonic() + BUILD_TIMEOUT_S
+        errors = []
+        for src, _, proc in procs:
+            _, err = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            if proc.returncode != 0:
+                errors.append(
+                    f"{src.name} ({proc.returncode}):\n{err[-6000:]}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        return [obj for _, obj, _ in procs]
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels if this exact source set is not built yet.
     Returns (library path, seconds spent compiling)."""
@@ -79,23 +116,21 @@ def build() -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = _compile_all(nvcc, cu, tmp)
+        lib = os.path.join(tmp, "lib.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, timeout=900,
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+            capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
+                f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
             )
-        os.replace(tmp, path)  # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, path)  # atomic: a concurrent build never sees half
     return path, time.perf_counter() - t0
 
 
@@ -127,6 +162,26 @@ def launch(name: str, *args) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sum_partials(partials: torch.Tensor) -> torch.Tensor:
+    """Column sums of a (B, C) array of per-block partials, the rows added
+    in order (`csrc/reduce.cu`): the same bits on every run."""
+    check(partials, "partials", torch.float32, partials.device)
+    B, C = partials.shape
+    out = torch.empty(C, dtype=torch.float32, device=partials.device)
+    launch("tbr_sum_rows", partials.data_ptr(), out.data_ptr(), B, C,
+           stream_of(partials))
+    return out
+
+
+def window_tensor(windowing_vec4, device) -> torch.Tensor:
+    """(4,) float32 window (center, width, low cutoff, high cutoff) on
+    ``device``; a tensor already there is used as it is (gradients flow)."""
+    win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=device)
+    if win.shape != (4,):
+        raise ValueError(f"window must hold 4 values, got {tuple(win.shape)}")
+    return win
 
 
 def check(t: torch.Tensor, name: str, dtype, device) -> None:

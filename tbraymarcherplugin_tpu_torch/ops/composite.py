@@ -226,9 +226,11 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
                         coeff("la2"), coeff("lb2"), n1, n2, compute_dtype)
 
     # Chunk occupancy: can any value in a chunk's range give alpha > 0?
+    # (plan data: computed on detached values, it takes no gradient)
     inf = torch.tensor([float("inf")], device=dev)
-    sl_mn = torch.cat([vplanes.amin((1, 2)), inf.expand(Kp - K)])
-    sl_mx = torch.cat([vplanes.amax((1, 2)), -inf.expand(Kp - K)])
+    vp = vplanes.detach()
+    sl_mn = torch.cat([vp.amin((1, 2)), inf.expand(Kp - K)])
+    sl_mx = torch.cat([vp.amax((1, 2)), -inf.expand(Kp - K)])
     mn_c = sl_mn.view(nch, KB).amin(1)
     mx_c = sl_mx.view(nch, KB).amax(1)
     if jitter_on:  # jittered samples of chunk c lerp into plane (c + 1) * KB
@@ -236,7 +238,8 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
         mn_c = torch.minimum(mn_c, sl_mn[nxt])
         mx_c = torch.maximum(mx_c, sl_mx[nxt])
     win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=dev)
-    occ = windowed_tf_range_occupied(mn_c, mx_c, win, tf_table)
+    occ = windowed_tf_range_occupied(mn_c, mx_c, win.detach(),
+                                     tf_table.detach())
 
     step_world, e0, e1 = _clip_step_fields(plan, clip_center, clip_direction,
                                            dev)

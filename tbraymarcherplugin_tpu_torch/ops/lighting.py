@@ -6,6 +6,13 @@ Counterpart of `tbraymarcherplugin_tpu/ops/lighting.py` (the reference's
 package. Per face, the occluder opacity of every light voxel is computed
 in one pass (constant-offset trilinear resample, then kernel K3,
 `tf_alpha.py`) and the slice scan runs as kernel K4 (`light_scan.py`).
+
+Both are the differentiable units (backward kernels K8 and K7), so the
+whole rebuild takes gradients to the volume, the TF table, the window and
+``light_alpha`` (a 0-d tensor there) as the JAX package's differentiable
+callers do (`tf_impl="pallas_vjp"`, `scan_impl="pallas"`). The resample's
+shifted slices stay slices: their adjoint on the GPU is a copy, where the
+JAX package switches to selection matmuls for the TPU's sake.
 """
 
 from __future__ import annotations
@@ -16,9 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .light_scan import propagate_face_scan
+from .light_scan import propagate_face_scan_vjp
 from .sampling import VOLUME_DENSITY, clip_soft_alpha_weight, trilinear_sample
-from .tf_alpha import windowed_tf_alpha
+from .tf_alpha import windowed_tf_alpha_vjp
 
 # Per-voxel light deltas at or below this are not written
 # (`AddDirLightShader.usf:123`, `ChangeDirLightShader.usf:152`).
@@ -105,7 +112,7 @@ class FacePropagationPlan(NamedTuple):
     uv_offset: tuple[float, float]
     uvw_offset: tuple[float, float, float]
     step_size: float
-    light_alpha: float  # intensity * face weight
+    light_alpha: float  # intensity * face weight (the weight in a LightPlan)
 
 
 def plan_face_propagation(face: int, light_pos, light_dims,
@@ -175,8 +182,9 @@ def occluder_opacity_volume(volume, tf_table, windowing_vec4, light_dims,
                             clip_direction):
     """Per-voxel occluder opacity of one face (`AddDirLightShader.usf:84-114`):
     the volume sampled at each light voxel center offset toward the light,
-    windowed TF alpha (kernel K3), times the soft clip weight; zero where
-    the offset sample leaves [0, 1]^3. Returns a ``light_dims`` tensor."""
+    windowed TF alpha (kernels K3/K8), times the soft clip weight; zero
+    where the offset sample leaves [0, 1]^3. Returns a ``light_dims``
+    tensor."""
     dev = volume.device
     res = torch.tensor(light_dims, dtype=torch.float32, device=dev)
     grids = torch.meshgrid(
@@ -194,8 +202,7 @@ def occluder_opacity_volume(volume, tf_table, windowing_vec4, light_dims,
     else:
         value = trilinear_sample(volume, uvw)
     step = float(np.float32(step_size) * np.float32(VOLUME_DENSITY))
-    opacity = windowed_tf_alpha(value.contiguous(), tf_table, windowing_vec4,
-                                step)
+    opacity = windowed_tf_alpha_vjp(value, tf_table, windowing_vec4, step)
     keep = inside & (alpha_weight > 0.0)
     return torch.where(keep, opacity * alpha_weight,
                        torch.zeros_like(opacity))
@@ -207,8 +214,9 @@ def _propagate_one_face(volume, tf_table, windowing_vec4, clip_center,
                         apply_write_threshold: bool = True):
     """Transmitted light of one face's share of a light, shape
     ``light_dims``: occluder field, transpose so propagation is the scan
-    axis, flip so the scan walks slice 0 -> N-1, scan (kernel K4),
-    threshold, and undo the flip and transpose."""
+    axis, flip so the scan walks slice 0 -> N-1, scan (kernels K4/K7),
+    threshold, and undo the flip and transpose. ``light_alpha`` is a
+    number or a 0-d tensor."""
     ax = transposed_axes(face)
     tdims = (light_dims[ax[0]], light_dims[ax[1]], light_dims[ax[2]])
     opacity = occluder_opacity_volume(
@@ -221,8 +229,8 @@ def _propagate_one_face(volume, tf_table, windowing_vec4, clip_center,
     uv = np.asarray(uv_off, np.float32)
     off_px = uv[0] * np.float32(tdims[0])
     off_py = uv[1] * np.float32(tdims[1])
-    slices = propagate_face_scan(opacity_t.movedim(2, 0).contiguous(),
-                                 off_px, off_py, light_alpha)
+    slices = propagate_face_scan_vjp(opacity_t.movedim(2, 0).contiguous(),
+                                     off_px, off_py, light_alpha)
     result_t = slices.movedim(0, 2)
     if apply_write_threshold:
         result_t = torch.where(result_t.abs() > WRITE_SKIP_THRESHOLD,

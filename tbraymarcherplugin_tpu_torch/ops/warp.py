@@ -1,14 +1,19 @@
-"""K2: the two-pass screen warp of the shear-warp frame.
+"""K2 and K6: the two-pass screen warp of the shear-warp frame and its
+adjoint.
 
 Counterpart of `tbraymarcherplugin_tpu/ops/pallas_warp.py::
-warp_to_screen_fused` (with ``channel_major=True``) and its
-`banded_row_lerp`. :func:`row_lerp` launches `csrc/row_lerp.cu` for a CUDA
-tensor and runs :func:`row_lerp_plain` for a CPU tensor.
+warp_to_screen_fused` (with ``channel_major=True``) and its differentiable
+`banded_row_lerp`. :func:`row_lerp` launches `csrc/row_lerp.cu` and
+:func:`row_lerp_bwd` launches `csrc/row_lerp_bwd.cu` for CUDA tensors; for
+CPU tensors each runs its ``_plain`` version. Both passes of
+:func:`warp_to_screen_fused` go through :func:`row_lerp_vjp`, so the warp
+takes gradients to the intermediate image; the index fields take none.
 
-The TPU kernel copied one fixed band of each source row into VMEM, so the
-JAX package guards the per-tile index spread (`assert_warp_band`). The
-Hopper kernel reads its taps from global memory: it has no band and no
-guard.
+The TPU kernels copied one fixed band of each source row into VMEM, so the
+JAX package guards the per-tile index spread (`assert_warp_band`) and its
+adjoint clips taps into the band. The Hopper kernels read and write their
+taps in global or shared memory: they have no band and no guard, and agree
+with the JAX package wherever its band holds the spread.
 """
 
 from __future__ import annotations
@@ -19,6 +24,16 @@ from . import _kernels
 from .shearwarp import ShearWarpPlan, screen_fields, warp_rows
 
 _MAX_GRID_Y = 65535
+_MAX_BWD_SMEM = 227 * 1024  # K6 keeps 4 rows of accumulators per block
+
+
+def _taps(idx: torch.Tensor, n: int):
+    """(i0, i1, fr) of clamp-to-edge lerps into rows of ``n`` texels."""
+    ic = idx.clamp(0.0, float(n - 1))
+    i0f = torch.floor(ic)
+    fr = ic - i0f
+    i0 = i0f.long()
+    return i0, (i0 + 1).clamp(max=n - 1), fr
 
 
 def row_lerp_plain(rows: torch.Tensor, idx: torch.Tensor,
@@ -27,11 +42,7 @@ def row_lerp_plain(rows: torch.Tensor, idx: torch.Tensor,
     ``rows`` (groups * Rq, N), ``idx`` (Rq, Q) -> (groups * Rq, Q)."""
     R, n = rows.shape
     Rq, Q = idx.shape
-    ic = idx.clamp(0.0, float(n - 1))
-    i0f = torch.floor(ic)
-    fr = ic - i0f
-    i0 = i0f.long()
-    i1 = (i0 + 1).clamp(max=n - 1)
+    i0, i1, fr = _taps(idx, n)
     rows3 = rows.view(groups, Rq, n)
     r0 = torch.gather(rows3, 2, i0[None].expand(groups, Rq, Q))
     r1 = torch.gather(rows3, 2, i1[None].expand(groups, Rq, Q))
@@ -66,6 +77,70 @@ def row_lerp(rows: torch.Tensor, idx: torch.Tensor,
 row_lerp.launches = 0
 
 
+def row_lerp_bwd_plain(g: torch.Tensor, idx: torch.Tensor, n: int,
+                       groups: int = 1) -> torch.Tensor:
+    """Adjoint of :func:`row_lerp_plain` in ``rows``: ``g`` (groups * Rq,
+    Q) -> d rows (groups * Rq, n), ``g * (1 - fr)`` added at tap i0 and
+    ``g * fr`` at tap i1 of each (row, q)."""
+    R, Q = g.shape
+    i0, i1, fr = (t.repeat(groups, 1) for t in _taps(idx, n))
+    d = torch.zeros((R, n), dtype=torch.float32, device=g.device)
+    d.scatter_add_(1, i0, g * (1.0 - fr))
+    d.scatter_add_(1, i1, g * fr)
+    return d
+
+
+def row_lerp_bwd(g: torch.Tensor, idx: torch.Tensor, n: int,
+                 groups: int = 1) -> torch.Tensor:
+    """d rows of :func:`row_lerp`; see :func:`row_lerp_bwd_plain`. Sums in a
+    fixed order: the same bits on every run."""
+    R, Q = g.shape
+    Rq = idx.shape[0]
+    if R != Rq * groups or idx.shape[1] != Q:
+        raise ValueError(f"g {tuple(g.shape)} != groups * idx "
+                         f"{tuple(idx.shape)}")
+    if g.device.type == "cpu":
+        return row_lerp_bwd_plain(g, idx, n, groups)
+    g = g.contiguous()
+    idx = idx.contiguous()
+    _kernels.check(g, "g", torch.float32, g.device)
+    _kernels.check(idx, "idx", torch.float32, g.device)
+    if 4 * n * 4 > _MAX_BWD_SMEM:
+        raise ValueError(f"row_lerp_bwd takes rows of at most "
+                         f"{_MAX_BWD_SMEM // 16} texels, got {n}")
+    d = torch.empty((R, n), dtype=torch.float32, device=g.device)
+    _kernels.launch("tbr_row_lerp_bwd", g.data_ptr(), idx.data_ptr(),
+                    d.data_ptr(), R, Rq, n, Q, _kernels.stream_of(g))
+    row_lerp_bwd.launches += 1
+    return d
+
+
+row_lerp_bwd.launches = 0
+
+
+class _RowLerp(torch.autograd.Function):
+    """Forward :func:`row_lerp` (K2), backward :func:`row_lerp_bwd` (K6),
+    both looked up at call time."""
+
+    @staticmethod
+    def forward(ctx, rows, idx, groups):
+        ctx.n, ctx.groups = rows.shape[1], groups
+        ctx.save_for_backward(idx)
+        return row_lerp(rows, idx, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return row_lerp_bwd(g, idx, ctx.n, ctx.groups), None, None
+
+
+def row_lerp_vjp(rows: torch.Tensor, idx: torch.Tensor,
+                 groups: int = 1) -> torch.Tensor:
+    """Differentiable :func:`row_lerp` (gradient to ``rows`` only), the
+    JAX package's ``banded_row_lerp``."""
+    return _RowLerp.apply(rows, idx, groups)
+
+
 def pass1_index(plan: ShearWarpPlan, W: int, p1r, p2r, pdr, device=None):
     """(n2, W) pass-1 index field i*(u, j), computed natively in (n2, W)
     orientation as the JAX package's fused warp does."""
@@ -90,16 +165,17 @@ def pass1_index(plan: ShearWarpPlan, W: int, p1r, p2r, pdr, device=None):
 def warp_to_screen_fused(intermediate: torch.Tensor, plan: ShearWarpPlan,
                          width: int, height: int) -> torch.Tensor:
     """(4, n1, n2) channel-major intermediate image -> (height, width, 4)
-    screen image via two :func:`row_lerp` passes and the validity mask."""
+    screen image via two :func:`row_lerp_vjp` passes and the validity
+    mask."""
     dev = intermediate.device
     p1r, p2r, pdr, W, H = warp_rows(plan, width, height)
     C = intermediate.shape[0]
     idx1 = pass1_index(plan, W, p1r, p2r, pdr, dev)  # (n2, W)
     rows1 = intermediate.transpose(1, 2).reshape(C * plan.n2, plan.n1)
-    M = row_lerp(rows1, idx1, C).view(C, plan.n2, W)
+    M = row_lerp_vjp(rows1, idx1, C).view(C, plan.n2, W)
     j_uv, valid = screen_fields(plan, W, H, p1r, p2r, pdr, dev)  # (W, H)
     rows2 = M.transpose(1, 2).reshape(C * W, plan.n2)
-    S = row_lerp(rows2, j_uv, C).view(C, W, H)
+    S = row_lerp_vjp(rows2, j_uv, C).view(C, W, H)
     S = torch.where(valid[None], S, torch.zeros_like(S))
     img = S.permute(2, 1, 0)  # (H, W, C)
     if plan.swap_warp:

@@ -1,13 +1,17 @@
-"""Where the time of a lit frame, an illumination rebuild and a light move
-goes on one CUDA device.
+"""Where the time of a lit frame, an illumination rebuild, a light move and
+a differentiable fwd+bwd step goes on one CUDA device.
 
     python -m tbraymarcherplugin_tpu_torch.tools.profile_frame
 
 Builds the bench scene (256^3 `ct_like_phantom(seed=0)`, bone TF, window
 (0.5, 0.8), one light at (0.3, 0.1, -0.95), camera
 `look_at((0.1, -2.3, 0.4), 0)` at 40 degrees, 1920x1080, 150 planes,
-jitter on) through `Renderer`, warms every phase up once, then times and
-profiles ``REPS`` calls of each phase and prints:
+jitter on) through `Renderer`, and the same scene without jitter through
+`models.pipeline.render_lit_scene` for ``fwd_bwd``: one
+``loss.backward()`` of the L2 loss against the frame at window
+(0.5, 0.8), the window center moving by 0.01 per call from 0.55. It warms
+every phase up once, then times and profiles ``REPS`` calls of each phase
+and prints:
 
 - ``wall``: host-clock ms per call without the profiler, work ended by
   ``torch.cuda.synchronize()``;
@@ -127,10 +131,13 @@ def main() -> int:
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 2
 
+    from ..models import pipeline as PP
+    from ..ops import shearwarp as SW
     from ..ops import synthetic
     from ..ops import transfer as T
+    from ..ops.rays import setup_rays
     from ..renderer import Renderer, RendererConfig
-    from ..scene import Camera, DirLight
+    from ..scene import Camera, ClipPlane, DirLight, VolumeTransform
     from ..utils.volume_info import WindowingParameters
 
     dev = torch.device("cuda", 0)
@@ -159,8 +166,38 @@ def main() -> int:
         r.update_light("sun", DirLight.create(LIGHT_DIRS[moves[0] % 2], 1.0))
         r.ensure_lighting()
 
+    transform = VolumeTransform.create()
+    clip = ClipPlane.disabled()
+    plan = SW.plan_shearwarp(cam, transform, DIMS, DIMS, WIDTH, HEIGHT,
+                             max_planes=STEPS)
+    rays = setup_rays(cam, transform, WIDTH, HEIGHT)
+    light_plans = (PP.LightPlan.create(LIGHT_DIRS[0], DIMS),)
+
+    def params(center):
+        return PP.RenderParams(
+            volume.detach(), T.tf_ct_bone(device=dev),
+            torch.tensor(center, device=dev),
+            torch.tensor(WINDOW[1], device=dev),
+            torch.tensor([1.0], device=dev))
+
+    def render(p):
+        return PP.render_lit_scene(p, rays, clip.center, clip.direction,
+                                   light_plans, DIMS, shearwarp_plan=plan)
+
+    with torch.no_grad():
+        target = render(params(WINDOW[0]))
+    steps = [0]
+
+    def fwd_bwd():
+        steps[0] += 1
+        p = params(0.55 + 0.01 * (steps[0] % 3))
+        for t in (p.volume, p.tf_table, p.window_center, p.window_width,
+                  p.light_intensities):
+            t.requires_grad_()
+        ((render(p) - target) ** 2).mean().backward()
+
     phases = (("rebuild", rebuild), ("frame", frame),
-              ("light_move", light_move))
+              ("light_move", light_move), ("fwd_bwd", fwd_bwd))
     for _, fn in phases:  # build the kernels, the plan and the caches
         fn()
     print(f"[profile] {torch.cuda.get_device_name(0)} | {card} | torch "

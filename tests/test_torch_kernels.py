@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K8) against their plain PyTorch versions on
 the card, on the same inputs.
 
 This file imports no JAX: the machine with the card has none. There, run
@@ -17,10 +17,13 @@ import pytest
 import torch
 
 from tbraymarcherplugin_tpu_torch import scene as PS
+from tbraymarcherplugin_tpu_torch.models import pipeline as PP
 from tbraymarcherplugin_tpu_torch.ops import composite as PC
 from tbraymarcherplugin_tpu_torch.ops import light_scan as PK4
 from tbraymarcherplugin_tpu_torch.ops import lighting as PL
+from tbraymarcherplugin_tpu_torch.ops import rays as PR
 from tbraymarcherplugin_tpu_torch.ops import shearwarp as PSW
+from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad as PK5
 from tbraymarcherplugin_tpu_torch.ops import synthetic
 from tbraymarcherplugin_tpu_torch.ops import tf_alpha as PK3
 from tbraymarcherplugin_tpu_torch.ops import transfer as T
@@ -150,8 +153,8 @@ def test_add_dir_light_kernels_match_plain(cuda, light_dims):
     args = (torch.zeros(light_dims, device=cuda), vol, tf, WINDOWS[0],
             clip.center, clip.direction, [0.3, 0.1, -0.95], 1.0)
     got = PL.add_dir_light(*args)
-    with _plain((PL, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
-                (PL, "propagate_face_scan", PK4.propagate_face_scan_plain)):
+    with _plain((PK3, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
+                (PK4, "propagate_face_scan", PK4.propagate_face_scan_plain)):
         want = PL.add_dir_light(*args)
     torch.cuda.synchronize()
     assert float(want.max()) > 0.3
@@ -159,3 +162,154 @@ def test_add_dir_light_kernels_match_plain(cuda, light_dims):
     # which changes it by at most the threshold
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=0, atol=PL.WRITE_SKIP_THRESHOLD * 1.01)
+
+
+ALL_PLAIN = (
+    (PC, "composite", PC.composite_plain),
+    (PW, "row_lerp", PW.row_lerp_plain),
+    (PK3, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
+    (PK4, "propagate_face_scan", PK4.propagate_face_scan_plain),
+    (PK5, "composite_bwd", PK5.composite_bwd_plain),
+    (PW, "row_lerp_bwd", PW.row_lerp_bwd_plain),
+    (PK4, "propagate_face_scan_bwd", PK4.propagate_face_scan_bwd_plain),
+    (PK3, "windowed_tf_alpha_bwd", PK3.windowed_tf_alpha_bwd_plain),
+)
+
+
+def _close(got, want, rtol, atol_frac, name):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_frac * scale,
+                               err_msg=name)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_tf_alpha_bwd_kernel_matches_plain(cuda, gen):
+    vals = torch.from_numpy(
+        gen.random((64, 64, 64), dtype=np.float32) * 1.4 - 0.2).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((64, 64, 64)).astype(
+        np.float32)).to(cuda)
+    tf = T.tf_ct_bone(device=cuda)
+    for win in WINDOWS:
+        w = torch.tensor(win, device=cuda)
+        before = PK3.windowed_tf_alpha_bwd.launches
+        got = PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7, g)
+        assert PK3.windowed_tf_alpha_bwd.launches == before + 1
+        again = PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7, g)
+        want = PK3.windowed_tf_alpha_bwd_plain(vals, tf, w, 1.7, g)
+        torch.cuda.synchronize()
+        assert _same_bits(got, again)  # fixed-order reductions
+        # expf/logf ulps per element; sums in another order
+        _close(got[0], want[0], 1e-5, 1e-6, "dval")
+        _close(got[1], want[1], 1e-4, 1e-5, "dtf")
+        _close(got[2], want[2], 1e-4, 1e-5, "dwin")
+
+
+@pytest.mark.parametrize("off", [(0.37, -1.6), (-10.4, 3.3), (2.0, 0.0)])
+def test_scan_bwd_kernel_matches_plain(cuda, gen, off):
+    op = torch.from_numpy(
+        gen.random((40, 96, 72), dtype=np.float32) * 0.3).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((40, 96, 72)).astype(
+        np.float32)).to(cuda)
+    alpha = torch.tensor(0.9, device=cuda)
+    y = PK4.propagate_face_scan(op, off[0], off[1], alpha)
+    before = PK4.propagate_face_scan_bwd.launches
+    got = PK4.propagate_face_scan_bwd(g, op, y, off[0], off[1], alpha)
+    assert PK4.propagate_face_scan_bwd.launches == before + 1
+    want = PK4.propagate_face_scan_bwd_plain(g, op, y, off[0], off[1], alpha)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):  # the same operations in the same order
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_row_lerp_bwd_kernel_matches_plain(cuda, gen):
+    """Index spread ~2000 texels per row, magnifying rows, both edges."""
+    g = torch.from_numpy(gen.standard_normal((48, 3000)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy((np.linspace(-40.0, 2088.0, 3000)[None, :]
+                            + gen.random((12, 3000)) * 5.0).astype(np.float32)
+                           ).to(cuda)
+    before = PW.row_lerp_bwd.launches
+    got = PW.row_lerp_bwd(g, idx, 2048, 4)
+    assert PW.row_lerp_bwd.launches == before + 1
+    again = PW.row_lerp_bwd(g, idx, 2048, 4)
+    want = PW.row_lerp_bwd_plain(g, idx, 2048, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want, 1e-5, 1e-6, "d rows")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("win", [WINDOWS[0], [0.3, 1.5, 0.0, 0.0]])
+def test_composite_bwd_kernel_matches_plain(cuda, gen, dtype, win):
+    dims = (64, 64, 64)
+    plan = _plan(dims, 320, 180, max_planes=60)
+    vol = torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda)
+    lv = torch.from_numpy(gen.random(dims, dtype=np.float32)).to(cuda)
+    clip = PS.ClipPlane(*CLIP)
+    ops = PC.prepare_composite(
+        vol, T.tf_ct_bone(device=cuda), lv, plan, win, clip.center,
+        clip.direction, compute_dtype=dtype)
+    for k in ("jitter", "occ"):
+        del ops[k]
+    ops["g"] = torch.from_numpy(gen.random((4, plan.n1, plan.n2),
+                                           dtype=np.float32)).to(cuda)
+    before = PK5.composite_bwd.launches
+    got = PK5.composite_bwd(**ops)
+    assert PK5.composite_bwd.launches == before + 1
+    again = PK5.composite_bwd(**ops)
+    want = PK5.composite_bwd_plain(**ops)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)  # fixed-order reductions
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    assert float(want[2].abs().max()) > 0
+    # expf/logf ulps through the reverse recurrences; with bf16 cotangents
+    # an ulp of float32 can round to the next bf16 value (2^-8 relative)
+    rtol = 1e-4 if dtype == torch.float32 else 8e-3
+    for name, a, b in zip(("dW", "dL"), got, want):
+        _close(a, b, rtol, 1e-5, name)
+    _close(got[2], want[2], 1e-4, 1e-5, "dtf")
+    _close(got[3], want[3], 1e-4, 1e-5, "dwin")
+
+
+def test_render_lit_scene_grads_kernels_match_plain(cuda):
+    """The whole fwd+bwd at 32^3 through K1-K8 against the all-plain path
+    on the card (float32 planes)."""
+    dims = (32, 32, 32)
+    cam = PS.Camera.look_at((0.1, -2.3, 0.4), 0.0, fov_degrees=40.0)
+    tr = PS.VolumeTransform.create()
+    plan = PSW.plan_shearwarp(cam, tr, dims, dims, 160, 90, max_planes=24)
+    plans = (PP.LightPlan.create((0.3, 0.1, -0.95), dims),)
+    clip = PS.ClipPlane.disabled()
+    rays = PR.setup_rays(cam, tr, 160, 90)
+    vol = torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda)
+
+    def grads():
+        params = PP.RenderParams(
+            vol.clone().requires_grad_(),
+            T.tf_ct_bone(device=cuda).requires_grad_(),
+            torch.tensor(0.55, device=cuda, requires_grad=True),
+            torch.tensor(0.8, device=cuda, requires_grad=True),
+            torch.tensor([1.0], device=cuda, requires_grad=True))
+        img = PP.render_lit_scene(params, rays, clip.center, clip.direction,
+                                  plans, dims, shearwarp_plan=plan,
+                                  shearwarp_dtype=torch.float32)
+        (img ** 2).mean().backward()
+        return [p.grad for p in (params.volume, params.tf_table,
+                                 params.window_center, params.window_width,
+                                 params.light_intensities)]
+
+    counters = [getattr(mod, name) for mod, name, _ in ALL_PLAIN]
+    before = [fn.launches for fn in counters]
+    got = grads()
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    with _plain(*ALL_PLAIN):
+        want = grads()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("volume", "tf", "center", "width", "intensity"),
+                          got, want):
+        assert float(b.abs().max()) > 0, name
+        _close(a, b, 1e-3, 1e-4, name)

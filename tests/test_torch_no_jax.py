@@ -1,4 +1,5 @@
-"""The port imports and renders with JAX unavailable."""
+"""The port imports, renders and differentiates a frame with JAX
+unavailable."""
 
 import os
 import subprocess
@@ -19,6 +20,31 @@ r.add_light("sun", DirLight.create([0.3, 0.1, -0.95], 1.0))
 img = r.render(Camera.look_at([0.1, -2.3, 0.4], 0.0, fov_degrees=40.0), 24, 16)
 assert img.shape == (16, 24, 4) and bool(img.isfinite().all())
 assert float(img[..., 3].max()) > 0.0
+
+# the differentiable frame: fwd+bwd through K1-K8's plain versions
+import torch
+from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+from tbraymarcherplugin_tpu_torch.ops import rays, shearwarp
+from tbraymarcherplugin_tpu_torch.scene import ClipPlane, VolumeTransform
+
+dims = (16, 16, 16)
+cam = Camera.look_at([0.1, -2.3, 0.4], 0.0, fov_degrees=40.0)
+tr = VolumeTransform.create()
+params = PP.RenderParams(
+    torch.from_numpy(synthetic.ct_like_phantom(dims)).requires_grad_(),
+    transfer.tf_ct_bone().requires_grad_(),
+    torch.tensor(0.5, requires_grad=True), torch.tensor(0.8, requires_grad=True),
+    torch.tensor([1.0], requires_grad=True))
+clip = ClipPlane.disabled()
+img = PP.render_lit_scene(
+    params, rays.setup_rays(cam, tr, 24, 16), clip.center, clip.direction,
+    (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims,
+    shearwarp_plan=shearwarp.plan_shearwarp(cam, tr, dims, dims, 24, 16,
+                                            max_planes=12))
+(img ** 2).mean().backward()
+for leaf in (params.volume, params.tf_table, params.window_center,
+             params.window_width, params.light_intensities):
+    assert bool(leaf.grad.isfinite().all()) and bool((leaf.grad != 0).any())
 assert not any(m == "jax" or m.startswith(("jax.", "tbraymarcherplugin_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
