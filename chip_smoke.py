@@ -26,7 +26,17 @@ Phases, one line each:
      kernel K5-K8 against its plain version on the inputs the path gave it
      (and against itself: two launches must give the same bits),
      the gradients against the all-plain path on the card, and a 24^3
-     fwd+bwd on the card against the CPU.
+     fwd+bwd on the card against the CPU;
+  6. march: four fly-through frames with the camera inside the volume
+     (same scene, jitter on), where shear-warp has no plan and `Renderer`
+     marches through K9: K9's counter must rise and K1's must not; frames
+     are checked for finiteness, coverage and distinct checksums; K9
+     against its plain version on the path's inputs, and on the bench
+     camera forced to march (`march_impl="pallas"`), both timed; the frame
+     against the all-plain path; a 24^3 frame inside the volume on the card
+     against the CPU; one frame back outside takes K1 again; and a small
+     `render_lit_scene(march_impl="blocked")` fwd+bwd on the card against
+     the CPU.
 Then a JSON line of the kernels, the card line, and the result line.
 
 There is no CPU path: without a CUDA device the script exits with an error.
@@ -55,7 +65,7 @@ FOV = 40.0
 # csrc/common.cuh); what remains are ulps of expf/logf against PyTorch's
 # exp/log (K1, K3). K2 and K4 have no transcendentals and agree exactly.
 LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
-          "light_scan": 1e-5}
+          "light_scan": 1e-5, "march": 2e-5}
 # Backward kernels against their plain versions on the same inputs, as the
 # largest error over the largest plain value of each output (K5: dW, dL, dTF,
 # d window; K6: d rows; K7: d opacity, sum m, m_0; K8: d values, dTF,
@@ -76,6 +86,15 @@ FRAME_VS_PLAIN_LIMIT = 1e-4
 # relative) or flip one pixel's 0.95 snap, which moves that pixel's whole
 # contribution.
 GRAD_VS_PLAIN_LIMIT = 1e-2
+# Phase 6: the fly-through camera, inside the 256^3 volume's dominant slab
+# (no shear-warp plan), looking at the center through the phantom's bone
+# shell; every ray of its frame hits bone (alpha coverage 1.0 on the CPU at
+# 24^3 and 64^3), far above the 5% coverage check. Successive frames step
+# the camera along FLY_STEP.
+FLY_POS, FLY_STEP, FLY_FOV = (0.1, -0.3, 0.05), (0.01, 0.005, 0.0), 60.0
+# A march frame on the card (float32 throughout) against the CPU at 24^3:
+# the light volume meets K3's exp/log ulps, as in phase 4's frame limit.
+SMALL_MARCH_LIMIT = 1e-4
 # bf16 plane storage (card) vs float32 (CPU), the JAX package's own bounds
 # for bf16 against f32 (tests/test_shearwarp_pallas.py::test_fused_bf16_close)
 SMALL_MEAN_LIMIT, SMALL_MAX_LIMIT = 2e-3, 0.06
@@ -89,6 +108,7 @@ REPLACES = {
     "row_lerp_bwd": "tbraymarcherplugin_tpu/ops/pallas_warp.py:93",
     "light_scan_bwd": "tbraymarcherplugin_tpu/ops/pallas_lighting.py:184",
     "tf_alpha_bwd": "tbraymarcherplugin_tpu/ops/pallas_tf.py:291",
+    "march": "tbraymarcherplugin_tpu/ops/pallas_march.py:359",
 }
 SOURCES = {
     "composite": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
@@ -99,6 +119,7 @@ SOURCES = {
     "row_lerp_bwd": "tbraymarcherplugin_tpu_torch/csrc/row_lerp_bwd.cu",
     "light_scan_bwd": "tbraymarcherplugin_tpu_torch/csrc/light_scan_bwd.cu",
     "tf_alpha_bwd": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha_bwd.cu",
+    "march": "tbraymarcherplugin_tpu_torch/csrc/march.cu",
 }
 
 
@@ -139,10 +160,10 @@ def check(ok, msg):
 
 
 def kernel_table():
-    """(name, module, wrapper name) of each kernel, K1-K8."""
-    from tbraymarcherplugin_tpu_torch.ops import composite, light_scan
-    from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad, tf_alpha
-    from tbraymarcherplugin_tpu_torch.ops import warp
+    """(name, module, wrapper name) of each kernel, K1-K9."""
+    from tbraymarcherplugin_tpu_torch.ops import composite, fused_march
+    from tbraymarcherplugin_tpu_torch.ops import light_scan, shearwarp_grad
+    from tbraymarcherplugin_tpu_torch.ops import tf_alpha, warp
 
     return (("composite", composite, "composite"),
             ("row_lerp", warp, "row_lerp"),
@@ -151,7 +172,8 @@ def kernel_table():
             ("composite_bwd", shearwarp_grad, "composite_bwd"),
             ("row_lerp_bwd", warp, "row_lerp_bwd"),
             ("light_scan_bwd", light_scan, "propagate_face_scan_bwd"),
-            ("tf_alpha_bwd", tf_alpha, "windowed_tf_alpha_bwd"))
+            ("tf_alpha_bwd", tf_alpha, "windowed_tf_alpha_bwd"),
+            ("march", fused_march, "march_lit_fused"))
 
 
 @contextlib.contextmanager
@@ -262,7 +284,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
 
         return step
 
-    table = kernel_table()
+    table = kernel_table()[:8]  # K1-K8: the shear-warp fwd+bwd
     step = make_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
     for _, mod, fn in table:
         getattr(mod, fn).launches = 0
@@ -339,6 +361,153 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
           and float(diff.max()) < SMALL_MAX_LIMIT, "card != CPU on 24^3")
     check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
           "card gradients != CPU gradients on 24^3")
+
+
+def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
+                results):
+    """Phase 6 (see the module docstring); adds K9 to ``results``."""
+    from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+    from tbraymarcherplugin_tpu_torch.ops import composite as K1
+    from tbraymarcherplugin_tpu_torch.ops import fused_march as K9
+    from tbraymarcherplugin_tpu_torch.ops import synthetic
+    from tbraymarcherplugin_tpu_torch.ops import transfer as T
+    from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
+    from tbraymarcherplugin_tpu_torch.renderer import Renderer, RendererConfig
+    from tbraymarcherplugin_tpu_torch.scene import Camera, ClipPlane
+
+    dev = volume.device
+
+    def make_renderer(vol=volume, table=tf, steps=STEPS, **cfg):
+        r = Renderer(vol, tf_table=table, windowing=windowing,
+                     transform=transform,
+                     config=RendererConfig(step_count=steps, jitter=True,
+                                           **cfg),
+                     device=vol.device)
+        r.add_light("sun", light)
+        return r
+
+    cams = [Camera.look_at(tuple(p + i * d for p, d in zip(FLY_POS, FLY_STEP)),
+                           (0.0, 0.0, 0.0), fov_degrees=FLY_FOV)
+            for i in range(4)]
+    r = make_renderer()
+    r.ensure_lighting()
+    K1.composite.launches = 0
+    K9.march_lit_fused.launches = 0
+    frames, frame_ms = [], []
+    for c in cams:
+        img, ms = host_ms(torch, lambda c=c: r.render(c, WIDTH, HEIGHT))
+        frames.append(img)
+        frame_ms.append(ms)
+    launches = {"march": K9.march_lit_fused.launches,
+                "composite": K1.composite.launches}
+    print(f"[march] fly-through launches {launches} | frames "
+          f"{', '.join(f'{m:.2f}' for m in frame_ms)} ms (host clock) | "
+          f"{card}", flush=True)
+    check(r._sw_plan is None, "the fly-through camera has a shear-warp plan")
+    check(launches["march"] > 0, "kernel march was not launched by the march "
+          "path")
+    check(launches["composite"] == 0, "the march path launched K1")
+    results["march"] = dict(launches=launches["march"])
+    sums, covers = [], []
+    for f in frames:
+        check(tuple(f.shape) == (HEIGHT, WIDTH, 4), f"frame shape {f.shape}")
+        check(bool(torch.isfinite(f).all()), "non-finite frame")
+        covers.append(float((f[..., 3] > 0.01).float().mean()))
+        check(covers[-1] > 0.05, f"alpha coverage {covers[-1]:.3f} too small")
+        sums.append(float(f.double().sum()))
+    check(len(set(sums)) == len(sums), f"frame checksums repeat: {sums}")
+    del frames
+
+    # K9 against its plain version on the path's inputs, at the fly-through
+    # camera and at the bench camera forced to march
+    timed = {}
+    for label, rend, c in (("fly-through", r, cams[0]),
+                           ("bench camera", make_renderer(
+                               march_impl="pallas"), cam)):
+        calls = {}
+        with capture_calls(calls, ["march"]):
+            rend.render(c, WIDTH, HEIGHT)
+        (args, kw), = calls["march"]
+        got = K9.march_lit_fused(*args, **kw)
+        want = K9.march_lit_fused_plain(*args, **kw)
+        d = (got - want).abs()
+        err = float(d.max())
+        check(math.isfinite(err), "march: non-finite output")
+        flips = int((d[..., 3] > 0.5).sum())  # early-termination flips
+        ms = cuda_ms(torch, lambda: K9.march_lit_fused(*args, **kw), 5)
+        plain_ms = cuda_ms(torch, lambda: K9.march_lit_fused_plain(*args,
+                                                                    **kw), 1)
+        timed[label] = (err, ms, plain_ms)
+        print(f"[kernel] march ({label}): max_abs_err {err:.3e} (limit "
+              f"{LIMITS['march']:.0e}), pixels whose snap flipped {flips} | "
+              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | coverage "
+              f"{float((want[..., 3] > 0.01).float().mean()):.3f} | {card}",
+              flush=True)
+        check(err <= LIMITS["march"], "march disagrees with its plain version")
+        del calls, args, kw, got, want, d
+    err, ms, plain_ms = timed["fly-through"]
+    results["march"].update(max_abs_err=max(t[0] for t in timed.values()),
+                            ms=ms, plain_ms=plain_ms)
+
+    # the frame against the all-plain path (frame index 0 in both)
+    rp = make_renderer()
+    with all_plain():
+        ref = rp.render(cams[0], WIDTH, HEIGHT)
+    got = make_renderer().render(cams[0], WIDTH, HEIGHT)
+    frame_err = float((got - ref).abs().max())
+    print(f"[march] fly-through frame vs all-plain path on the card: "
+          f"max_abs_err {frame_err:.3e} (limit {FRAME_VS_PLAIN_LIMIT:.0e}) | "
+          f"coverage {', '.join(f'{x:.3f}' for x in covers)} | checksums "
+          f"{', '.join(f'{x:.1f}' for x in sums)}", flush=True)
+    check(frame_err <= FRAME_VS_PLAIN_LIMIT, "kernel frame != plain frame")
+    del rp, ref, got
+
+    # back outside: the shear-warp plan and K1 again, no K9
+    K1.composite.launches = 0
+    K9.march_lit_fused.launches = 0
+    r.render(cam, WIDTH, HEIGHT)
+    check(r._sw_plan is not None and K1.composite.launches > 0
+          and K9.march_lit_fused.launches == 0,
+          "the frame back outside did not take shear-warp (K1)")
+    del r
+
+    # 24^3 inside the volume: a march frame on the card against the CPU
+    small = torch.from_numpy(synthetic.ct_like_phantom((24, 24, 24), seed=0))
+    imgs = [make_renderer(small.to(d), T.tf_ct_bone(device=d), 20)
+            .render(cams[0], 64, 48).cpu() for d in (dev, torch.device("cpu"))]
+    small_err = float((imgs[0] - imgs[1]).abs().max())
+
+    # ... and a small fwd+bwd through the blocked march
+    dims = (24, 24, 24)
+    rays = {d: setup_rays(cams[0], transform, 64, 48, device=d)
+            for d in (dev, torch.device("cpu"))}
+    clip = transform.local_clip_plane(ClipPlane.disabled())
+    plans = (PP.LightPlan.create(LIGHT_DIR, dims),)
+    fields = ("volume", "tf_table", "window_center", "window_width",
+              "light_intensities")
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        p = PP.RenderParams(small.to(d), T.tf_ct_bone(device=d),
+                            torch.tensor(0.55, device=d),
+                            torch.tensor(WINDOW[1], device=d),
+                            torch.tensor([1.0], device=d))
+        for f in fields:
+            getattr(p, f).requires_grad_()
+        img = PP.render_lit_scene(p, rays[d], clip.center, clip.direction,
+                                  plans, dims, step_count=20,
+                                  march_impl="blocked")
+        (img ** 2).mean().backward()
+        grads.append([getattr(p, f).grad.cpu() for f in fields])
+    errs = {f: float((a - b).norm() / b.norm())
+            for f, a, b in zip(fields, *grads)}
+    print(f"[small] march at 24^3, 64x48, inside: frame card vs CPU max "
+          f"{small_err:.2e} (limit {SMALL_MARCH_LIMIT:.0e}); blocked-march "
+          f"fwd+bwd gradients, |d|_2 / |CPU|_2: {errs} (limit "
+          f"{GRAD_VS_PLAIN_LIMIT:.0e})", flush=True)
+    check(small_err <= SMALL_MARCH_LIMIT, "march frame: card != CPU on 24^3")
+    check(all(g.abs().max() > 0 for g in grads[1]), "a zero CPU gradient")
+    check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
+          "blocked-march gradients: card != CPU on 24^3")
 
 
 def main() -> int:
@@ -555,6 +724,11 @@ def main() -> int:
 
     # --- 5. fwd+bwd --------------------------------------------------------
     fwd_bwd_phase(torch, volume, cam, transform, clip, card, results)
+    torch.cuda.synchronize()
+
+    # --- 6. march ----------------------------------------------------------
+    march_phase(torch, volume, tf, windowing, light, cam, transform, card,
+                results)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

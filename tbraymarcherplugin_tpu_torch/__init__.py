@@ -1,6 +1,7 @@
 """TBRaymarcherPlugin on PyTorch and CUDA: the lit shear-warp frame, its
-illumination rebuild and the differentiable frame with its backward, with
-hand-written kernels for NVIDIA Hopper (sm_90a).
+illumination rebuild, the differentiable frame with its backward, and the
+ray march of a camera inside the volume, with hand-written kernels for
+NVIDIA Hopper (sm_90a).
 
 A port of the JAX package ``tbraymarcherplugin_tpu``, which stays the
 reference. This package imports torch and numpy, never jax. Tensors live
@@ -30,9 +31,13 @@ Module mapping (port <- JAX package):
                            ``csrc/composite_bwd.cu``)
 ``ops/warp.py``            ``ops/pallas_warp.py`` (K2, ``csrc/row_lerp.cu``;
                            K6, ``csrc/row_lerp_bwd.cu``)
-``models/pipeline.py``     ``models/pipeline.py`` (shear-warp branches)
+``ops/march.py``           ``ops/march.py``
+``ops/fused_march.py``     ``ops/pallas_march.py`` (K9, ``csrc/march.cu``)
+``ops/octree.py``          ``ops/octree.py`` (pyramids, occupancy grid)
+``models/pipeline.py``     ``models/pipeline.py`` (shear-warp and march
+                           branches)
 ``convert.py``             (JAX state as numpy -> the port's state)
-``renderer.py``            ``renderer.py`` (lit mode)
+``renderer.py``            ``renderer.py`` (lit mode, march fallback)
 =========================  ==============================================
 """
 

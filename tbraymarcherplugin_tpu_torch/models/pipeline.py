@@ -1,5 +1,5 @@
-"""The functional lit pipeline: illumination rebuild plus shear-warp frame
-in one differentiable function.
+"""The functional lit pipeline: illumination rebuild plus frame in one
+differentiable function.
 
 Counterpart of `tbraymarcherplugin_tpu/models/pipeline.py`. The
 interactive `Renderer` keeps state and updates lights incrementally; this
@@ -12,10 +12,13 @@ width, and the per-light intensities. Call ``loss.backward()`` on a loss of
 backward: K5 (`ops/shearwarp_grad.py`), K6 (`ops/warp.py`), K7
 (`ops/light_scan.py`) and K8 (`ops/tf_alpha.py`).
 
-Only the shear-warp branches are ported: the differentiable
-``shearwarp_tf_unit="fused"`` path and the forward-only
-``shearwarp_stop_early`` path. The ray-march branches and the sharded
-gradient all-reduce raise ``NotImplementedError``.
+The frame is a shear-warp frame (the differentiable
+``shearwarp_tf_unit="fused"`` path, or the forward-only
+``shearwarp_stop_early`` path) or a ray march: ``"scan"``, ``"blocked"`` and
+``"tiled2d"`` differentiate through autograd (`ops/march.py`), ``"pallas"``
+is forward-only through K9 (`ops/fused_march.py`). The dense shear-warp
+composite and the sharded gradient all-reduce raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..ops import fused_march as FM
 from ..ops import lighting as L
+from ..ops import march as M
 from ..ops.composite import shearwarp_intermediate_fused
 from ..ops.compositing import EARLY_TERMINATION_ALPHA
 from ..ops.shearwarp_grad import shearwarp_intermediate_fused_diff
@@ -107,36 +112,69 @@ def compute_illumination(params: RenderParams,
     return lv
 
 
+MARCH_IMPLS = ("shearwarp", "scan", "blocked", "tiled2d", "pallas")
+
+
 def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
                      light_plans: tuple, light_dims: tuple, *,
-                     low_cutoff: bool = True, high_cutoff: bool = True,
+                     step_count: int = 150, low_cutoff: bool = True,
+                     high_cutoff: bool = True, checkpoint_every: int = 32,
                      early_termination: float = EARLY_TERMINATION_ALPHA,
                      march_impl: str = "shearwarp", shearwarp_plan=None,
                      shearwarp_dtype=None,
                      shearwarp_stop_early: bool = False,
                      shearwarp_tf_unit: str = "fused",
                      grad_allreduce_axis: str | None = None) -> torch.Tensor:
-    """Lit render -> (height, width, 4): the illumination rebuild, the
-    shear-warp composite and the screen warp. ``rays`` gives only the
-    screen size (``rays.thickness.shape == (height, width)``); the plan
-    (`ops.shearwarp.plan_shearwarp`) encodes the camera.
+    """Lit render -> (height, width, 4): the illumination rebuild, then the
+    frame by ``march_impl``.
 
-    ``shearwarp_stop_early=True`` is the forward-only fast path (K1 + K2,
-    run without autograd); otherwise ``shearwarp_tf_unit="fused"`` is the
-    differentiable path (forward K1-K4, backward K5-K8).
-    ``shearwarp_dtype`` stores the pre-sheared planes: bfloat16 on the
-    card, float32 on the CPU by default.
+    - ``"shearwarp"``: the shear-warp composite and the screen warp;
+      ``rays`` gives only the screen size (``rays.thickness.shape ==
+      (height, width)``), the plan (`ops.shearwarp.plan_shearwarp`) encodes
+      the camera. ``shearwarp_stop_early=True`` is the forward-only fast
+      path (K1 + K2, run without autograd); otherwise
+      ``shearwarp_tf_unit="fused"`` is the differentiable path (forward
+      K1-K4, backward K5-K8). ``shearwarp_dtype`` stores the pre-sheared
+      planes: bfloat16 on the card, float32 on the CPU by default.
+    - ``"scan"`` (`march.march_lit`, checkpointed every
+      ``checkpoint_every`` steps), ``"blocked"`` (`march.march_lit_blocked`
+      in blocks of ``checkpoint_every`` steps, `march_lit_tiled` above
+      `march.DEFAULT_TILE_SIZE` rays) and ``"tiled2d"`` (32x32-pixel tiles)
+      march ``rays`` with ``step_count`` steps per unit and differentiate
+      through autograd; the illumination's backward runs K7 and K8.
+    - ``"pallas"``: the march through K9, forward only: run it under
+      ``torch.no_grad()`` (it raises when a leaf would record a gradient).
     """
-    if march_impl != "shearwarp":
+    if march_impl not in MARCH_IMPLS:
+        raise ValueError(f"unknown march_impl {march_impl!r}; choose "
+                         f"{MARCH_IMPLS}")
+    if grad_allreduce_axis is not None:
         raise NotImplementedError(_NOT_PORTED.format(
-            what=f"march_impl={march_impl!r} (the ray march)"))
+            what="grad_allreduce_axis (the sharded gradient all-reduce)"))
+    if march_impl != "shearwarp":
+        win = _windowing_vec4(params, low_cutoff, high_cutoff)
+        lv = compute_illumination(params, light_plans, clip_center,
+                                  clip_direction, light_dims, low_cutoff,
+                                  high_cutoff)
+        args = (params.volume, params.tf_table, lv, rays, win, clip_center,
+                clip_direction)
+        kw = dict(step_count=step_count, early_termination=early_termination)
+        if march_impl == "pallas":
+            return FM.march_lit_fused(*args, **kw)
+        if march_impl == "scan":
+            return M.march_lit(*args, checkpoint_every=checkpoint_every, **kw)
+        kw["block_size"] = checkpoint_every
+        if march_impl == "tiled2d":
+            return M.march_lit_tiled(
+                *args, tile2d=(32, 32) if rays.thickness.dim() == 2 else None,
+                **kw)
+        if rays.thickness.numel() > M.DEFAULT_TILE_SIZE:
+            return M.march_lit_tiled(*args, **kw)
+        return M.march_lit_blocked(*args, **kw)
     if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"shearwarp_tf_unit={shearwarp_tf_unit!r} (the dense "
                  f"composite)"))
-    if grad_allreduce_axis is not None:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="grad_allreduce_axis (the sharded gradient all-reduce)"))
     if shearwarp_plan is None:
         raise ValueError("march_impl='shearwarp' needs shearwarp_plan "
                          "(ops.shearwarp.plan_shearwarp)")

@@ -51,6 +51,7 @@ SIGNATURES = {
     "tbr_light_scan_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _F, _I, _F, _I, _F]
     + [_P, _P],
     "tbr_sum_rows": [_P, _P, _I, _I, _P],
+    "tbr_march": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_I, _P],
 }
 
 _lib = None

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..scene import Camera, VolumeTransform
@@ -49,10 +50,10 @@ def camera_rays(camera: Camera, width: int, height: int, device=None):
     return origins, dirs
 
 
-def setup_rays(camera: Camera, transform: VolumeTransform, width: int,
-               height: int, device=None) -> RayBatch:
-    """World rays -> local UVW entry, direction (normalized in local space)
-    and thickness, entry clamped in front of the camera."""
+def _local_rays(camera: Camera, transform: VolumeTransform, width: int,
+                height: int, device=None):
+    """(H, W, 3) ray origins in UVW space and unit directions in local
+    space (normalized after the inverse scale)."""
     origins_w, dirs_w = camera_rays(camera, width, height, device)
     rot = torch.as_tensor(transform.rotation, device=device)
     trans = torch.as_tensor(transform.translation, device=device)
@@ -62,11 +63,46 @@ def setup_rays(camera: Camera, transform: VolumeTransform, width: int,
     dirs_local = dirs_local / torch.linalg.vector_norm(
         dirs_local, dim=-1, keepdim=True
     )
+    return origin_uvw, dirs_local
+
+
+def setup_rays(camera: Camera, transform: VolumeTransform, width: int,
+               height: int, scene_depth=None, device=None) -> RayBatch:
+    """World rays -> local UVW entry, direction (normalized in local space)
+    and thickness, entry clamped in front of the camera and exit to
+    ``scene_depth``: an optional (H, W) distance along each local ray where
+    opaque scene geometry starts (`CalcSceneDepth`,
+    `RaymarchMaterialCommon.usf:26-44`; :func:`scene_depth_from_plane` makes
+    one)."""
+    origin_uvw, dirs_local = _local_rays(camera, transform, width, height,
+                                         device)
     t0, t1 = ray_aabb_intersection(origin_uvw, dirs_local)
     t0 = t0.clamp(min=0.0)
+    if scene_depth is not None:
+        t1 = torch.minimum(t1, torch.as_tensor(
+            scene_depth, dtype=torch.float32, device=t1.device))
     thickness = (t1 - t0).clamp(min=0.0)
     entry = origin_uvw + t0[..., None] * dirs_local
     return RayBatch(entry=entry, direction=dirs_local, thickness=thickness)
+
+
+def scene_depth_from_plane(camera: Camera, transform: VolumeTransform,
+                           width: int, height: int, plane_point, plane_normal,
+                           device=None) -> torch.Tensor:
+    """(H, W) depth of an opaque world-space plane along each local ray, in
+    the units :func:`setup_rays`'s ``scene_depth`` takes; +inf where the
+    plane is behind the camera or parallel to the ray."""
+    origin_l, dirs_l = _local_rays(camera, transform, width, height, device)
+    # x_w = (x_l * s) @ R + t, so the local normal is (n_w @ R^T) * s
+    n_l = torch.as_tensor(
+        (np.asarray(plane_normal, np.float32) @ transform.rotation.T)
+        * transform.scale, device=device)
+    p_l = torch.as_tensor(transform.world_to_uvw(plane_point), device=device)
+    denom = (dirs_l * n_l).sum(-1)
+    tnum = ((p_l - origin_l) * n_l).sum(-1)
+    flat = denom.abs() < 1e-12
+    t = tnum / torch.where(flat, torch.full_like(denom, 1e-12), denom)
+    return torch.where(flat | (t <= 0.0), torch.full_like(t, float("inf")), t)
 
 
 def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:

@@ -45,6 +45,18 @@ def trilinear_sample(volume: torch.Tensor, uvw: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - fx) + c1 * fx
 
 
+def transfer_func_position(value, center, width):
+    """Windowing: data value -> TF coordinate (`WindowedSampling.usf:14-17`)."""
+    return (value - center + width * 0.5) / width
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clipped to [0, 1] with XLA's subgradient of ``jnp.clip``: 1
+    inside, 0.5 at an exact bound (TF alpha plateaus sit at exactly 0), 0
+    outside; ``torch.clamp`` would pass 1 at the bounds."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def correct_for_step_size(intensity, step_size):
     """Opacity correction ``1 - (1 - a)^step`` (`RaymarcherCommon.usf:46-49`),
     written ``1 - exp(step * log(max(1 - a, 1e-10)))`` as the kernels do."""
@@ -59,12 +71,22 @@ def sample_windowed_transfer_function(value, step_size, tf_table,
     (`WindowedSampling.usf:20-37`)."""
     center, width = windowing_vec4[0], windowing_vec4[1]
     low_c, high_c = windowing_vec4[2], windowing_vec4[3]
-    tf_pos = (value - center + width * 0.5) / width
+    tf_pos = transfer_func_position(value, center, width)
     cut = ((tf_pos < 0.0) & (low_c > 0.0)) | ((tf_pos > 1.0) & (high_c > 0.0))
     color = sample_tf(tf_table, tf_pos)
-    alpha = correct_for_step_size(color[..., 3].clamp(0.0, 1.0), step_size)
+    alpha = correct_for_step_size(clip01(color[..., 3]), step_size)
     rgba = torch.cat([color[..., :3], alpha[..., None]], dim=-1)
     return torch.where(cut[..., None], torch.zeros_like(rgba), rgba)
+
+
+def is_clipped(uvw, clip_center, clip_direction) -> torch.Tensor:
+    """Half-space clip test (`RaymarcherCommon.usf:22-25`): True where
+    ``dot(P - center, dir) <= 0``, the dot product summed x, y, then z."""
+    cc = torch.as_tensor(clip_center, dtype=torch.float32, device=uvw.device)
+    cd = torch.as_tensor(clip_direction, dtype=torch.float32,
+                         device=uvw.device)
+    d = (uvw - cc) * cd
+    return d[..., 0] + d[..., 1] + d[..., 2] <= 0.0
 
 
 def clip_soft_alpha_weight(uvw, clip_center, clip_direction, resolution):

@@ -10,7 +10,11 @@ the last frame and updates the illumination volume accordingly
 - more than half the lights changed                      -> full rebuild
 
 A frame is a shear-warp render: the host plan (cached per camera), the
-composite (kernel K1) and the two-pass screen warp (kernel K2).
+composite (kernel K1) and the two-pass screen warp (kernel K2). When the
+camera sits inside the volume's dominant slab the factorization does not
+exist, and the frame is a ray march instead: kernel K9 by default, or the
+blocked march with empty-space skipping, or the step-by-step march
+(``march_impl``).
 """
 
 from __future__ import annotations
@@ -22,16 +26,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from .ops import fused_march as FM
 from .ops import lighting as L
+from .ops import march as M
+from .ops import octree as O
 from .ops import shearwarp as SW
 from .ops.composite import shearwarp_intermediate_fused
-from .ops.rays import jitter_values
+from .ops.rays import jitter_values, setup_rays
 from .ops.transfer import default_grayscale_tf
 from .ops.warp import warp_to_screen_fused
 from .scene import Camera, ClipPlane, DirLight, VolumeTransform
 from .utils.volume_info import VolumeInfo, WindowingParameters
 
 RENDER_MODES = ("lit", "intensity", "octree")
+MARCH_IMPLS = ("auto", "shearwarp", "pallas", "blocked", "scan")
 
 _NOT_PORTED = ("not ported yet: {what}. It comes with a later slice of the "
                "port (ROADMAP.md, 'Modules to port').")
@@ -45,8 +53,17 @@ class RendererConfig:
     - ``light_volume_half_resolution``: 8x fewer light voxels.
     - ``light_volume_32bit``: False emulates the reference's 8-bit light
       volume by quantizing after every update.
-    - ``jitter``: per-pixel temporal plane-phase jitter (default on).
-    - ``march_impl``: "auto" or "shearwarp"; both render by shear-warp.
+    - ``jitter``: per-pixel temporal jitter (default on): of the plane
+      phase on shear-warp frames, of the ray start on march frames.
+    - ``compat_final_step``: the march's final fractional step keeps the
+      reference's opacity step (see `ops/march.py`).
+    - ``march_impl``: "auto" and "shearwarp" render by shear-warp and fall
+      back to the march (K9) for a camera inside the dominant slab;
+      "pallas" always marches through K9 (`ops/fused_march.py`), "blocked"
+      through `march.march_lit_tiled`/`march_lit_blocked`, "scan" through
+      `march.march_lit`.
+    - ``empty_space_skipping``: the "blocked" march skips blocks that the
+      occupancy grid (`ops/octree.py`) proves empty; exact for the image.
     """
 
     step_count: int = 150
@@ -56,7 +73,9 @@ class RendererConfig:
     jitter: bool = True
     early_termination: float = 0.95
     apply_write_threshold: bool = True
+    compat_final_step: bool = True
     march_impl: str = "auto"
+    empty_space_skipping: bool = True
 
 
 def _quantize_u8(x: torch.Tensor) -> torch.Tensor:
@@ -75,9 +94,9 @@ class Renderer(nn.Module):
                  config: Optional[RendererConfig] = None, device=None):
         super().__init__()
         self.config = config or RendererConfig()
-        if self.config.march_impl not in ("auto", "shearwarp"):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"march_impl={self.config.march_impl!r} (the ray march)"))
+        if self.config.march_impl not in MARCH_IMPLS:
+            raise ValueError(f"unknown march_impl {self.config.march_impl!r}; "
+                             f"choose {MARCH_IMPLS}")
         self._check_mode(self.config.render_mode)
         volume = torch.as_tensor(volume, dtype=torch.float32, device=device)
         self._has_real_info = info is not None
@@ -107,6 +126,11 @@ class Renderer(nn.Module):
         self._lights_dirty = True
         self._sw_key = None
         self._sw_plan = None
+        # the occupancy grid of empty-space skipping, built from the octree
+        # on first use and dropped when the volume, TF or window changes
+        self.octree: Optional[O.Octree] = None
+        self._octree_dirty = True
+        self._occ: Optional[O.OccupancyGrid] = None
 
     @property
     def device(self) -> torch.device:
@@ -148,28 +172,35 @@ class Renderer(nn.Module):
         self.light_volume = L.clear_light_volume(self.light_volume_dims(),
                                                  device=self.device)
         self._lights_dirty = True
+        self._octree_dirty = True
+        self._occ = None
 
     def set_tf(self, tf_table):
         self.tf_table = torch.as_tensor(tf_table, dtype=torch.float32,
                                         device=self.device)
         self._lights_dirty = True
+        self._occ = None
 
     def set_window_center(self, center):
         self.windowing = dataclasses.replace(self.windowing, center=center)
         self._lights_dirty = True
+        self._occ = None
 
     def set_window_width(self, width):
         self.windowing = dataclasses.replace(self.windowing, width=width)
         self._lights_dirty = True
+        self._occ = None
 
     def set_low_cutoff(self, enabled: bool):
         self.windowing = dataclasses.replace(self.windowing, low_cutoff=enabled)
         self._lights_dirty = True
+        self._occ = None
 
     def set_high_cutoff(self, enabled: bool):
         self.windowing = dataclasses.replace(self.windowing,
                                              high_cutoff=enabled)
         self._lights_dirty = True
+        self._occ = None
 
     def set_transform(self, transform: VolumeTransform):
         self.transform = transform
@@ -269,20 +300,45 @@ class Renderer(nn.Module):
             self._prev_lights[name] = self._light_key(light)
         self._maybe_quantize()
 
+    def ensure_octree(self):
+        """Bring the min/max pyramid up to date (`bRequestedOctreeRebuild`)."""
+        if self.octree is None or self._octree_dirty:
+            self.octree = O.build_octree(self.volume, max_value=1.0)
+            self._octree_dirty = False
+
     # --- rendering -----------------------------------------------------------
 
     def render(self, camera: Camera, width: int, height: int,
                scene_depth=None) -> torch.Tensor:
         """Render one frame: (height, width, 4) RGBA on the renderer's
-        device."""
-        if scene_depth is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="the scene-depth clamp (depth_to_lambda_max)"))
+        device.
+
+        ``scene_depth``: optional (height, width) occluder depth along each
+        normalized local ray (`rays.scene_depth_from_plane` makes one), the
+        reference's depth-buffer clamp (`RaymarchMaterialCommon.usf:26-44`);
+        march frames only.
+        """
         self._check_mode(self.config.render_mode)
         self.ensure_lighting()
-        return self._render_shearwarp(camera, width, height)
+        if self.config.march_impl in ("auto", "shearwarp"):
+            img = self._render_shearwarp(camera, width, height, scene_depth)
+            if img is not None:
+                return img
+        rays = setup_rays(camera, self.transform, width, height,
+                          scene_depth=scene_depth, device=self.device)
+        jitter = None
+        if self.config.jitter:
+            # the march's own per-pixel field; the frame index advances only
+            # on frames that march
+            jitter = jitter_values(width, height, self._frame_index,
+                                   device=self.device)
+            self._frame_index += 1
+        return self._render_lit(rays, jitter)
 
-    def _render_shearwarp(self, camera: Camera, width: int, height: int):
+    def _render_shearwarp(self, camera: Camera, width: int, height: int,
+                          scene_depth=None):
+        """The shear-warp frame, or None when the camera sits inside the
+        volume's dominant slab (no plan: the caller marches instead)."""
         key = (
             camera.position.tobytes(), camera.rotation.tobytes(),
             float(camera.tan_half_fov), self.transform.rotation.tobytes(),
@@ -300,9 +356,11 @@ class Renderer(nn.Module):
             self._sw_key = key
         plan = self._sw_plan
         if plan is None:
+            return None
+        if scene_depth is not None:
             raise NotImplementedError(_NOT_PORTED.format(
-                what="the ray march for a camera inside the volume's "
-                     "dominant slab"))
+                what="the scene-depth clamp of a shear-warp frame "
+                     "(depth_to_lambda_max)"))
         jitter = None
         if self.config.jitter:
             jitter = jitter_values(plan.n2, plan.n1, self._frame_index,
@@ -315,3 +373,31 @@ class Renderer(nn.Module):
             early_termination=self.config.early_termination, jitter=jitter,
         )
         return warp_to_screen_fused(inter, plan, width, height)
+
+    def _render_lit(self, rays, jitter):
+        """The lit ray march of ``rays`` by ``march_impl``."""
+        cfg = self.config
+        win = self.windowing.as_vec4(self.device)
+        local_clip = self.transform.local_clip_plane(self.clip_plane)
+        args = (self.volume, self.tf_table, self.light_volume, rays, win,
+                local_clip.center, local_clip.direction)
+        kw = dict(jitter=jitter, step_count=cfg.step_count,
+                  early_termination=cfg.early_termination,
+                  compat_final_step=cfg.compat_final_step)
+        if cfg.march_impl == "scan":
+            return M.march_lit(*args, **kw)
+        if cfg.march_impl != "blocked":
+            # "auto", "shearwarp" and "pallas": K9, which has no window limit
+            return FM.march_lit_fused(*args, **kw)
+        ess = {}
+        if cfg.empty_space_skipping:
+            if self._occ is None:
+                self.ensure_octree()
+                self._occ = O.occupancy_grid(self.octree, win, self.tf_table)
+            ess = dict(occ_grid=self._occ.grid,
+                       occ_scale=self._occ.cell_scale, skip_blocks=True)
+        if rays.thickness.numel() > M.DEFAULT_TILE_SIZE or ess:
+            return M.march_lit_tiled(
+                *args, tile2d=(32, 32) if rays.thickness.dim() == 2 else None,
+                **ess, **kw)
+        return M.march_lit_blocked(*args, **kw)

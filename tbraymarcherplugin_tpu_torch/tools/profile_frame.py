@@ -1,5 +1,6 @@
-"""Where the time of a lit frame, an illumination rebuild, a light move and
-a differentiable fwd+bwd step goes on one CUDA device.
+"""Where the time of a lit frame, an illumination rebuild, a light move, a
+differentiable fwd+bwd step and a fly-through frame goes on one CUDA
+device.
 
     python -m tbraymarcherplugin_tpu_torch.tools.profile_frame
 
@@ -9,9 +10,11 @@ Builds the bench scene (256^3 `ct_like_phantom(seed=0)`, bone TF, window
 jitter on) through `Renderer`, and the same scene without jitter through
 `models.pipeline.render_lit_scene` for ``fwd_bwd``: one
 ``loss.backward()`` of the L2 loss against the frame at window
-(0.5, 0.8), the window center moving by 0.01 per call from 0.55. It warms
-every phase up once, then times and profiles ``REPS`` calls of each phase
-and prints:
+(0.5, 0.8), the window center moving by 0.01 per call from 0.55; and for
+``fly_through`` the same scene from a camera inside the volume
+(`look_at((0.1, -0.3, 0.05), 0)` at 60 degrees), where shear-warp has no
+plan and the frame is the ray march (kernel K9). It warms every phase up
+once, then times and profiles ``REPS`` calls of each phase and prints:
 
 - ``wall``: host-clock ms per call without the profiler, work ended by
   ``torch.cuda.synchronize()``;
@@ -46,6 +49,7 @@ WINDOW = (0.5, 0.8)
 LIGHT_DIRS = ((0.3, 0.1, -0.95), (0.1, 0.4, -0.9))
 CAM_POS = (0.1, -2.3, 0.4)
 FOV = 40.0
+FLY_POS, FLY_FOV = (0.1, -0.3, 0.05), 60.0
 REPS, TOP = 5, 12
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -146,12 +150,18 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     volume = torch.from_numpy(synthetic.ct_like_phantom(DIMS, seed=0)).to(dev)
-    r = Renderer(volume, tf_table=T.tf_ct_bone(device=dev),
-                 windowing=WindowingParameters(*WINDOW),
-                 config=RendererConfig(step_count=STEPS, jitter=True),
-                 device=dev)
-    r.add_light("sun", DirLight.create(LIGHT_DIRS[0], 1.0))
+
+    def make_renderer():
+        rend = Renderer(volume, tf_table=T.tf_ct_bone(device=dev),
+                        windowing=WindowingParameters(*WINDOW),
+                        config=RendererConfig(step_count=STEPS, jitter=True),
+                        device=dev)
+        rend.add_light("sun", DirLight.create(LIGHT_DIRS[0], 1.0))
+        return rend
+
+    r, r_fly = make_renderer(), make_renderer()
     cam = Camera.look_at(CAM_POS, 0.0, fov_degrees=FOV)
+    fly_cam = Camera.look_at(FLY_POS, 0.0, fov_degrees=FLY_FOV)
     moves = [0]
 
     def rebuild():
@@ -160,6 +170,9 @@ def main() -> int:
 
     def frame():
         r.render(cam, WIDTH, HEIGHT)
+
+    def fly_through():
+        r_fly.render(fly_cam, WIDTH, HEIGHT)
 
     def light_move():
         moves[0] += 1
@@ -197,7 +210,8 @@ def main() -> int:
         ((render(p) - target) ** 2).mean().backward()
 
     phases = (("rebuild", rebuild), ("frame", frame),
-              ("light_move", light_move), ("fwd_bwd", fwd_bwd))
+              ("light_move", light_move), ("fwd_bwd", fwd_bwd),
+              ("fly_through", fly_through))
     for _, fn in phases:  # build the kernels, the plan and the caches
         fn()
     print(f"[profile] {torch.cuda.get_device_name(0)} | {card} | torch "

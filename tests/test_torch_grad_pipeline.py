@@ -111,7 +111,7 @@ def test_stop_early_matches_jax_fused_forward():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(march_impl="blocked"), dict(shearwarp_tf_unit="xla"),
+    dict(shearwarp_tf_unit="pallas"), dict(shearwarp_tf_unit="xla"),
     dict(grad_allreduce_axis="data"),
 ])
 def test_unported_branches_raise(kw):
@@ -121,6 +121,65 @@ def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         PP.render_lit_scene(params, rays, clip.center, clip.direction, plans,
                             DIMS, shearwarp_plan=plan, **kw)
+
+
+# The march branches' gradients against jax.grad of the JAX package's:
+# |got - want|_2 / |want|_2 per leaf. The march is the same operations in
+# the same order on both sides, but the illumination's backward (K7, K8
+# here; the JAX XLA path there) and the checkpointed recompute sum in
+# other orders.
+MARCH_GRAD_RTOL = 1e-4
+MARCH_STEPS = 24
+
+
+@pytest.mark.parametrize("march_impl", ["blocked", "scan", "tiled2d"])
+def test_march_branch_grads_match_jax(rng, march_impl):
+    jparams, jrays, _, jplans = _jax_scene()
+    jclip = JS.ClipPlane.create([0.5, 0.45, 0.5], [0.3, 0.8, 0.52])
+    g = rng.random((H, W, 4), dtype=np.float32)
+    # 16-step blocks and checkpoints: several per ray, a ragged last one
+    kw = dict(step_count=MARCH_STEPS, checkpoint_every=16,
+              march_impl=march_impl)
+
+    def loss(p):
+        return jnp.sum(JP.render_lit_scene(
+            p, jrays, jclip.center, jclip.direction, jplans, DIMS, **kw) * g)
+
+    want_loss, want = jax.value_and_grad(loss)(jparams)
+    params, rays, _, plans = _port_scene(jparams)
+    clip = PS.ClipPlane.create([0.5, 0.45, 0.5], [0.3, 0.8, 0.52])
+    img = PP.render_lit_scene(params, rays, clip.center, clip.direction,
+                              plans, DIMS, **kw)
+    assert img.shape == (H, W, 4) and float(img.detach()[..., 3].max()) > 0.5
+    got_loss = (img * torch.from_numpy(g)).sum()
+    np.testing.assert_allclose(float(got_loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    got_loss.backward()
+    for f in FIELDS:
+        ref = np.asarray(getattr(want, f))
+        got = getattr(params, f).grad.numpy()
+        assert np.abs(ref).max() > 0, f
+        rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        assert rel <= MARCH_GRAD_RTOL, (f, rel)
+
+
+def test_pallas_branch_is_forward_only_k9():
+    jparams, jrays, _, jplans = _jax_scene()
+    params, rays, _, plans = _port_scene(jparams)
+    clip = PS.ClipPlane.disabled()
+    args = (params, rays, clip.center, clip.direction, plans, DIMS)
+    kw = dict(step_count=MARCH_STEPS, march_impl="pallas")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        PP.render_lit_scene(*args, **kw)
+    with torch.no_grad():
+        got = PP.render_lit_scene(*args, **kw).numpy()
+    want = np.asarray(JP.render_lit_scene(
+        jparams, jrays, JS.ClipPlane.disabled().center,
+        JS.ClipPlane.disabled().direction, jplans, DIMS, step_count=MARCH_STEPS,
+        march_impl="scan"))
+    assert want[..., 3].max() > 0.5
+    # K9 against march_lit: the JAX fused march's tolerance
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-5)
 
 
 def test_convert_render_params_matches_jax_light_plans():

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K8) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions on
 the card, on the same inputs.
 
 This file imports no JAX: the machine with the card has none. There, run
@@ -19,6 +19,7 @@ import torch
 from tbraymarcherplugin_tpu_torch import scene as PS
 from tbraymarcherplugin_tpu_torch.models import pipeline as PP
 from tbraymarcherplugin_tpu_torch.ops import composite as PC
+from tbraymarcherplugin_tpu_torch.ops import fused_march as PK9
 from tbraymarcherplugin_tpu_torch.ops import light_scan as PK4
 from tbraymarcherplugin_tpu_torch.ops import lighting as PL
 from tbraymarcherplugin_tpu_torch.ops import rays as PR
@@ -162,6 +163,37 @@ def test_add_dir_light_kernels_match_plain(cuda, light_dims):
     # which changes it by at most the threshold
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=0, atol=PL.WRITE_SKIP_THRESHOLD * 1.01)
+
+
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("half_res_light", [False, True])
+@pytest.mark.parametrize("pos", [(0.1, -0.3, 0.05), (0.1, -2.3, 0.4)])
+def test_march_kernel_matches_plain(cuda, gen, compat, half_res_light, pos):
+    """K9 from inside the volume and from outside, jittered, with a clip
+    plane and the low cutoff, the bone TF."""
+    dims = (64, 64, 64)
+    ldims = (32, 32, 32) if half_res_light else dims
+    cam = PS.Camera.look_at(pos, (0.0, 0.0, 0.0), fov_degrees=60.0)
+    rays = PR.setup_rays(cam, PS.VolumeTransform.create(), 320, 180,
+                         device=cuda)
+    jit = PR.jitter_values(320, 180, 2, device=cuda)
+    clip = PS.ClipPlane(*CLIP)
+    args = (torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda),
+            T.tf_ct_bone(device=cuda),
+            torch.from_numpy(gen.random(ldims, dtype=np.float32)).to(cuda),
+            rays, torch.tensor([0.5, 0.8, 1.0, 0.0], device=cuda),
+            clip.center, clip.direction)
+    kw = dict(jitter=jit, step_count=96, compat_final_step=compat)
+    before = PK9.march_lit_fused.launches
+    got = PK9.march_lit_fused(*args, **kw)
+    assert PK9.march_lit_fused.launches == before + 1
+    want = PK9.march_lit_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert float(want[..., 3].max()) > 0.5
+    # one-ulp differences of expf/logf against PyTorch's exp/log, through
+    # up to ~170 composited samples
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=2e-5)
 
 
 ALL_PLAIN = (

@@ -1,5 +1,6 @@
 """The port imports, renders and differentiates a frame with JAX
-unavailable."""
+unavailable: a shear-warp frame, a march frame from inside the volume, and
+fwd+bwd through the shear-warp and the blocked-march branches."""
 
 import os
 import subprocess
@@ -19,6 +20,10 @@ r = Renderer(synthetic.ct_like_phantom((16, 16, 16)),
 r.add_light("sun", DirLight.create([0.3, 0.1, -0.95], 1.0))
 img = r.render(Camera.look_at([0.1, -2.3, 0.4], 0.0, fov_degrees=40.0), 24, 16)
 assert img.shape == (16, 24, 4) and bool(img.isfinite().all())
+assert float(img[..., 3].max()) > 0.0
+# the camera inside the volume: no shear-warp plan, the frame marches (K9)
+img = r.render(Camera.look_at([0.1, -0.3, 0.05], 0.0), 24, 16)
+assert r._sw_plan is None and bool(img.isfinite().all())
 assert float(img[..., 3].max()) > 0.0
 
 # the differentiable frame: fwd+bwd through K1-K8's plain versions
@@ -42,8 +47,17 @@ img = PP.render_lit_scene(
     shearwarp_plan=shearwarp.plan_shearwarp(cam, tr, dims, dims, 24, 16,
                                             max_planes=12))
 (img ** 2).mean().backward()
-for leaf in (params.volume, params.tf_table, params.window_center,
-             params.window_width, params.light_intensities):
+leaves = (params.volume, params.tf_table, params.window_center,
+          params.window_width, params.light_intensities)
+for leaf in leaves:
+    assert bool(leaf.grad.isfinite().all()) and bool((leaf.grad != 0).any())
+    leaf.grad = None
+img = PP.render_lit_scene(
+    params, rays.setup_rays(cam, tr, 24, 16), clip.center, clip.direction,
+    (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims, step_count=12,
+    march_impl="blocked")
+(img ** 2).mean().backward()
+for leaf in leaves:
     assert bool(leaf.grad.isfinite().all()) and bool((leaf.grad != 0).any())
 assert not any(m == "jax" or m.startswith(("jax.", "tbraymarcherplugin_tpu."))
                for m in sys.modules if sys.modules[m] is not None)

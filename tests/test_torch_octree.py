@@ -1,0 +1,55 @@
+"""The port's min/max pyramid and occupancy grid (`ops/octree.py`) against
+the JAX package's, on the same numpy volume: the pyramids and the grid
+must be equal exactly (max/min of the same float32 values; the interval
+test is the same float32 arithmetic)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tbraymarcherplugin_tpu.ops import octree as JO
+from tbraymarcherplugin_tpu.ops import transfer as JT
+from tbraymarcherplugin_tpu_torch.ops import octree as PO
+from tbraymarcherplugin_tpu_torch.ops import synthetic
+
+# A non-monotone TF: alpha rises, falls to exactly 0, rises again.
+NON_MONOTONE = ([0.0, 0.2, 0.35, 0.5, 0.65, 1.0],
+                [[0, 0, 0, 0], [1, 0, 0, 0.6], [0, 0, 0, 0], [0, 0, 0, 0],
+                 [0, 1, 0, 0.8], [0, 0, 1, 0]])
+
+
+def test_build_octree_matches_jax():
+    vol = synthetic.ct_like_phantom((20, 13, 9), seed=1)
+    want = JO.build_octree(jnp.asarray(vol), max_value=0.8)
+    got = PO.build_octree(torch.from_numpy(vol), max_value=0.8)
+    assert got.data_dims == tuple(want.data_dims) == (20, 13, 9)
+    for gm, wm in zip(got.mips + got.min_mips, want.mips + want.min_mips):
+        np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+
+
+@pytest.mark.parametrize("tf_name", ["bone", "non_monotone"])
+@pytest.mark.parametrize("win", [(0.5, 0.8, 1.0, 1.0), (0.35, 0.3, 1.0, 0.0),
+                                 (0.6, 0.5, 0.0, 0.0)])
+def test_occupancy_grid_equals_jax(tf_name, win):
+    vol = synthetic.ct_like_phantom((33, 40, 30), seed=2)
+    vol[:, :24] = 0.0  # an empty slab, so that some cells are empty
+    tf = (JT.tf_ct_bone() if tf_name == "bone"
+          else JT.tf_from_keypoints(*NON_MONOTONE))
+    win_j = jnp.asarray(win, jnp.float32)
+    for mip in (1, 2, 3):
+        want = JO.occupancy_grid(JO.build_octree(jnp.asarray(vol)), win_j,
+                                 tf, mip=mip)
+        got = PO.occupancy_grid(PO.build_octree(torch.from_numpy(vol)),
+                                torch.tensor(win), torch.from_numpy(
+                                    np.array(tf)), mip=mip)
+        np.testing.assert_array_equal(got.grid.numpy(), np.asarray(want.grid))
+        assert got.cell_scale == tuple(want.cell_scale)
+    assert 0 < int(got.grid.sum()) < got.grid.numel()
+
+
+def test_occupancy_grid_rejects_mip_0():
+    oc = PO.build_octree(torch.zeros((8, 8, 8)))
+    with pytest.raises(ValueError, match="mip must be >= 1"):
+        PO.occupancy_grid(oc, torch.tensor([0.5, 1.0, 1.0, 1.0]),
+                          torch.ones((256, 4)), mip=0)

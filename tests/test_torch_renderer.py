@@ -1,6 +1,7 @@
 """The slice as a whole: the port's `Renderer` on the CPU (every kernel's
 plain version) vs the JAX package's `Renderer`, from the same state carried
-across by `convert.to_port_state`."""
+across by `convert.to_port_state`: shear-warp frames, and march frames for
+a camera inside the volume."""
 
 import numpy as np
 import pytest
@@ -28,15 +29,22 @@ STEPS = 20
 LIGHT = (0.3, 0.1, -0.95)
 MOVED = (0.1, 0.4, -0.9)
 CAM = ((0.1, -2.3, 0.4), (0.0, 0.0, 0.0))
+# inside the volume's dominant slab: no shear-warp plan, the frame marches
+INSIDE = ((0.1, -0.3, 0.05), (0.0, 0.0, 0.0))
+# K9 against the JAX package's step-by-step march_lit: the JAX fused march's
+# own tolerance (tests/test_pallas_march.py); the JAX Renderer's "pallas"
+# path needs a TPU, and K9 takes march_lit's semantics with the blocked
+# march's sample positions
+MARCH_RTOL, MARCH_ATOL = 1e-4, 5e-5
 
 
 def _jax_renderer(jitter=False, **cfg):
     vol = jnp.asarray(synthetic.ct_like_phantom(DIMS, seed=0))
+    cfg.setdefault("march_impl", "shearwarp")
     r = JRm.Renderer(
         vol, tf_table=JT.tf_ct_bone(),
         windowing=WindowingParameters(center=0.5, width=0.8),
-        config=JRm.RendererConfig(step_count=STEPS, march_impl="shearwarp",
-                                  jitter=jitter, **cfg),
+        config=JRm.RendererConfig(step_count=STEPS, jitter=jitter, **cfg),
     )
     r.add_light("sun", JS.DirLight.create(LIGHT, 1.0))
     return r
@@ -67,11 +75,12 @@ def _state(jr, cam):
 def _port_renderer(jr, cam, jitter=False, **cfg):
     arrays, names = _state(jr, cam)
     st = to_port_state(arrays)
+    cfg.setdefault("march_impl", "shearwarp")
     r = Renderer(st["volume"], tf_table=st["tf_table"],
                  windowing=st["windowing"], transform=st["transform"],
                  clip_plane=st["clip_plane"],
                  config=RendererConfig(step_count=STEPS, jitter=jitter,
-                                       march_impl="shearwarp", **cfg))
+                                       **cfg))
     r.light_volume = st["light_volume"]
     for name, light in zip(names, st["lights"]):
         r.add_light(name, light)
@@ -170,13 +179,69 @@ def test_unported_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="later slice"):
         Renderer(vol, config=RendererConfig(render_mode="intensity"))
     with pytest.raises(NotImplementedError, match="later slice"):
-        Renderer(vol, config=RendererConfig(march_impl="blocked"))
+        Renderer(vol, config=RendererConfig(render_mode="octree"))
     r = Renderer(vol, config=RendererConfig(step_count=16))
     with pytest.raises(NotImplementedError, match="later slice"):
         r.set_render_mode("octree")
     cam = PS.Camera.look_at(*CAM, fov_degrees=40.0)
+    depth = np.ones((16, 16), np.float32)
     with pytest.raises(NotImplementedError, match="scene-depth"):
-        r.render(cam, 16, 16, scene_depth=np.ones((16, 16), np.float32))
-    inside = PS.Camera.look_at((0.3, 0.45, 0.35), (0.31, 0.5, 0.37))
-    with pytest.raises(NotImplementedError, match="ray march"):
-        r.render(inside, 16, 16)
+        r.render(cam, 16, 16, scene_depth=depth)  # a shear-warp frame
+    inside = PS.Camera.look_at(*INSIDE)
+    img = r.render(inside, 16, 16, scene_depth=depth)  # a march frame
+    assert r._sw_plan is None and bool(img.isfinite().all())
+
+
+@pytest.mark.parametrize("march_impl", ["auto", "pallas"])
+def test_inside_camera_marches_like_jax(march_impl):
+    """The camera inside the volume: "auto" finds no shear-warp plan and
+    marches through K9 (its plain version here), as "pallas" always does;
+    jitter on, from the march's own field at frame 0."""
+    jr = _jax_renderer(jitter=True, march_impl="scan")
+    jcam = JS.Camera.look_at(*INSIDE)
+    port, pcam = _port_renderer(jr, jcam, jitter=True, march_impl=march_impl)
+    want = np.asarray(jr.render(jcam, W, H))
+    got = port.render(pcam, W, H).numpy()
+    assert port._frame_index == 1 and port._sw_plan is None
+    assert (port._sw_key is None) == (march_impl == "pallas")  # no plan made
+    assert got.shape == (H, W, 4) and want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=MARCH_RTOL, atol=MARCH_ATOL)
+
+
+def test_shearwarp_fallback_mid_orbit_and_recovery():
+    """``march_impl="shearwarp"`` marches the frame whose camera enters the
+    dominant slab and takes shear-warp again when it leaves (the JAX
+    package's `tests/test_renderer.py::test_shearwarp_fallback_mid_orbit`);
+    the march frame matches the JAX renderer's fallback."""
+    jr = _jax_renderer()
+    outside = PS.Camera.look_at(*CAM, fov_degrees=40.0)
+    port, _ = _port_renderer(jr, JS.Camera.look_at(*CAM, fov_degrees=40.0))
+    img = port.render(outside, W, H)
+    assert port._sw_plan is not None and bool(img.isfinite().all())
+    img2 = port.render(PS.Camera.look_at(*INSIDE), W, H).numpy()
+    assert port._sw_plan is None and np.isfinite(img2).all()
+    want = np.asarray(jr.render(JS.Camera.look_at(*INSIDE), W, H))
+    np.testing.assert_allclose(img2, want, rtol=MARCH_RTOL, atol=MARCH_ATOL)
+    img3 = port.render(outside, W, H)
+    assert port._sw_plan is not None  # the fast path is back
+    assert torch.equal(img3, img)
+
+
+@pytest.mark.parametrize("ess", [True, False])
+def test_blocked_march_matches_jax(ess):
+    """``march_impl="blocked"``: the tiled blocked march (32x32 tiles) with
+    empty-space skipping on the occupancy grid, or the blocked march
+    without; the same operations in the same order as the JAX renderer's,
+    so atol 2e-5."""
+    jr = _jax_renderer(jitter=True, march_impl="blocked",
+                       empty_space_skipping=ess)
+    jcam = JS.Camera.look_at(*INSIDE)
+    port, pcam = _port_renderer(jr, jcam, jitter=True, march_impl="blocked",
+                                empty_space_skipping=ess)
+    want = np.asarray(jr.render(jcam, W, H))
+    got = port.render(pcam, W, H).numpy()
+    assert want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    assert (port._occ is not None) == ess
+    port.set_window_width(0.7)  # the grid depends on the window
+    assert port._occ is None
