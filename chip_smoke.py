@@ -36,8 +36,26 @@ Phases, one line each:
      against the all-plain path; a 24^3 frame inside the volume on the card
      against the CPU; one frame back outside takes K1 again; and a small
      `render_lit_scene(march_impl="blocked")` fwd+bwd on the card against
-     the CPU.
-Then a JSON line of the kernels, the card line, and the result line.
+     the CPU;
+  7. dense fwd+bwd: three `loss.backward()` steps of the same scene and
+     loss as phase 5 through the dense composite
+     (`render_lit_scene(march_impl="shearwarp", shearwarp_tf_unit=
+     "pallas")`, float32 planes): the illumination kernels' and K10a's and
+     K10b's counters must rise, every leaf's gradient must be finite and
+     nonzero; K10a and K10b against their plain versions (and against
+     themselves) on the first block's inputs, the image and gradients
+     against the "xla" TF unit on the card (and a control with bfloat16
+     planes, which must fail those limits), and a 24^3 dense fwd+bwd on
+     the card against the CPU;
+  8. fit: `models.fitting.fit` through the dense composite from window
+     center 0.6 toward the frame at 0.5, with a checkpoint after each
+     step: finite, descending losses, and the newest checkpoint restored
+     on the card equals the fitted leaves;
+  9. the gather probe (`tools/micro.py`, K11): its tool's run, then the
+     kernel against `tab[idx]` (exactly), with the G gathers/s of the
+     kernel, the plain version and `torch.index_select`.
+Then a JSON line of the kernels (each with its bound, from the inputs it
+was timed on), the card line, and the result line.
 
 There is no CPU path: without a CUDA device the script exits with an error.
 """
@@ -76,6 +94,10 @@ LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
 # in its order and agrees exactly.
 BWD_LIMITS = {"composite_bwd": 2.0 ** -8, "row_lerp_bwd": 1e-5,
               "light_scan_bwd": 0.0, "tf_alpha_bwd": 1e-4}
+# K10a and K10b, replayed the same way on the dense path's inputs: K10a's
+# RGB lerps round as the plain version's and its alpha meets expf/logf
+# ulps; K10b sums in another order and meets the same ulps (K8's limit).
+REPLAY_LIMITS = dict(BWD_LIMITS, tf_rgba=1e-6, tf_rgba_bwd=1e-4)
 # Kernel frame vs all-plain frame, RGBA: K3's exp/log ulps reach the light
 # volume and move the frame by 7.5e-5 on the bench scene (PERF.md).
 FRAME_VS_PLAIN_LIMIT = 1e-4
@@ -99,6 +121,46 @@ SMALL_MARCH_LIMIT = 1e-4
 # for bf16 against f32 (tests/test_shearwarp_pallas.py::test_fused_bf16_close)
 SMALL_MEAN_LIMIT, SMALL_MAX_LIMIT = 2e-3, 0.06
 
+# Limits of phase 7. The dense composite's TF unit on the card, K10
+# against the "xla" unit's plain operations, and the card against the CPU
+# at 24^3 (float32 planes in all), as |got - want|_2 / |want|_2. Both read
+# 1e-6 to 1e-5 on the H100 (PERF.md): float32 ulps in other sum orders
+# (the "xla" unit's backward adds with atomics, in another order on every
+# run). bfloat16 planes on the dense path, the control that phase 7 also
+# runs, must fail them.
+DENSE_IMAGE_LIMIT = DENSE_GRAD_LIMIT = 1e-4
+FIT_STEPS = 5
+FIT_START_CENTER = 0.6
+
+# The least time the card could take for a call (`bound_ms`): the larger of
+# the bytes the call must move (each input read once, each output written
+# once) over the H100 SXM's 3.35 TB/s, and its float32 operations over the
+# 67 TFLOP/s outside the tensor cores (NVIDIA's H100 SXM data sheet).
+# Operations per element of each kernel's work, counted from its
+# source (a transcendental counts as one operation): per sample of the
+# composite (occupied planes x pixels), per output element of the row
+# lerp, per element of its first operand otherwise. The march counts
+# what its rays do on the inputs it was timed on (`march_ops`).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_ELEMENT = {
+    "composite": 60, "row_lerp": 6, "tf_alpha": 26, "light_scan": 20,
+    "composite_bwd": 120, "row_lerp_bwd": 8, "light_scan_bwd": 40,
+    "tf_alpha_bwd": 45, "tf_rgba": 35, "tf_rgba_bwd": 75, "gather_probe": 1,
+}
+# K9's float operations (csrc/march.cu, each round-to-nearest intrinsic,
+# min/max, floor, compare, log and exp one; integer index arithmetic and
+# loads not counted). Every step a thread takes: the sample position
+# (3 mul, 3 add) and the clip test (3 sub, 3 mul, 2 add, 1 compare): 15.
+# A sample that is neither clipped nor cut adds: the volume's trilinear
+# fetch (per axis mul, sub, floor, sub, max, min: 18; 3 weights; 7 lerps
+# of 3: 42), the window and cut (sub, add, div, 2 compares: 5), the TF
+# taps (mul, sub, floor, sub, 2 x max/min, add: 9), the alpha lerp and
+# its step correction (3 + 8), the light's fetch at the clamped position
+# (6 + 42), the RGB lerps and light products (12) and the composite with
+# the termination test (13): 140 more, 155 in all.
+MARCH_STEP_OPS, MARCH_SAMPLE_OPS = 15, 140
+
 REPLACES = {
     "composite": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
     "row_lerp": "tbraymarcherplugin_tpu/ops/pallas_warp.py:34",
@@ -109,6 +171,9 @@ REPLACES = {
     "light_scan_bwd": "tbraymarcherplugin_tpu/ops/pallas_lighting.py:184",
     "tf_alpha_bwd": "tbraymarcherplugin_tpu/ops/pallas_tf.py:291",
     "march": "tbraymarcherplugin_tpu/ops/pallas_march.py:359",
+    "tf_rgba": "tbraymarcherplugin_tpu/ops/pallas_tf.py:131",
+    "tf_rgba_bwd": "tbraymarcherplugin_tpu/ops/pallas_tf.py:170",
+    "gather_probe": "benchmarks/micro.py:155",
 }
 SOURCES = {
     "composite": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
@@ -120,6 +185,9 @@ SOURCES = {
     "light_scan_bwd": "tbraymarcherplugin_tpu_torch/csrc/light_scan_bwd.cu",
     "tf_alpha_bwd": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha_bwd.cu",
     "march": "tbraymarcherplugin_tpu_torch/csrc/march.cu",
+    "tf_rgba": "tbraymarcherplugin_tpu_torch/csrc/tf_rgba.cu",
+    "tf_rgba_bwd": "tbraymarcherplugin_tpu_torch/csrc/tf_rgba_bwd.cu",
+    "gather_probe": "tbraymarcherplugin_tpu_torch/csrc/gather_probe.cu",
 }
 
 
@@ -159,11 +227,60 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
+def _elements(torch, name, args, kw, out):
+    """The units of work of one call that OPS_PER_ELEMENT counts."""
+    if name == "composite":  # the samples of the occupied chunks
+        from tbraymarcherplugin_tpu_torch.ops.composite import KB
+        occ = kw["occ"].tolist()
+        planes = sum(min(KB, kw["k_real"] - c * KB)
+                     for c, o in enumerate(occ) if o)
+        return planes * kw["e1"].numel()
+    if name == "row_lerp":
+        return out.numel()
+    if name == "gather_probe":
+        return args[1].numel()
+    return next(a for a in args if isinstance(a, torch.Tensor)).numel()
+
+
+def march_ops(stats):
+    """K9's float operations on the inputs whose plain run filled ``stats``
+    (`fused_march.march_lit_fused_plain`): see MARCH_STEP_OPS."""
+    return (stats["steps"] * MARCH_STEP_OPS
+            + stats["samples"] * MARCH_SAMPLE_OPS)
+
+
+def bound(torch, name, calls, ops=None):
+    """``bound_ms`` and ``bound_by`` of the calls ``[(args, kw, out)]`` of
+    kernel ``name`` (see HBM_BYTES_PER_S); ``ops`` counts their operations
+    where OPS_PER_ELEMENT does not. The composite reads only the planes of
+    its occupied chunks."""
+    nbytes = 0
+    count = ops is None
+    ops = ops or 0
+    for args, kw, out in calls:
+        ins = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
+        outs = [t for t in as_tuple(out) if isinstance(t, torch.Tensor)]
+        n = _elements(torch, name, args, kw, out)
+        skip = 0
+        if count:
+            ops += n * OPS_PER_ELEMENT[name]
+        if name == "composite":  # unoccupied planes are never read
+            planes = kw["W"].shape[0] * kw["e1"].numel()
+            skip = (planes - n) * (kw["W"].element_size()
+                                   + kw["L"].element_size())
+        nbytes += sum(t.numel() * t.element_size() for t in ins + outs) - skip
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_table():
-    """(name, module, wrapper name) of each kernel, K1-K9."""
+    """(name, module, wrapper name) of each kernel, K1-K11."""
     from tbraymarcherplugin_tpu_torch.ops import composite, fused_march
     from tbraymarcherplugin_tpu_torch.ops import light_scan, shearwarp_grad
-    from tbraymarcherplugin_tpu_torch.ops import tf_alpha, warp
+    from tbraymarcherplugin_tpu_torch.ops import tf_alpha, tf_rgba, warp
+    from tbraymarcherplugin_tpu_torch.tools import micro
 
     return (("composite", composite, "composite"),
             ("row_lerp", warp, "row_lerp"),
@@ -173,7 +290,10 @@ def kernel_table():
             ("row_lerp_bwd", warp, "row_lerp_bwd"),
             ("light_scan_bwd", light_scan, "propagate_face_scan_bwd"),
             ("tf_alpha_bwd", tf_alpha, "windowed_tf_alpha_bwd"),
-            ("march", fused_march, "march_lit_fused"))
+            ("march", fused_march, "march_lit_fused"),
+            ("tf_rgba", tf_rgba, "windowed_tf_rgba"),
+            ("tf_rgba_bwd", tf_rgba, "windowed_tf_rgba_bwd"),
+            ("gather_probe", micro, "gather_probe"))
 
 
 @contextlib.contextmanager
@@ -208,16 +328,20 @@ def capture_calls(calls: dict, names):
         yield
 
 
-def replay_bwd(torch, name, real, plain, used, card, results):
-    """Hold backward kernel ``name`` against its plain version, and against
-    itself, on the recorded calls ``used``; time both."""
-    rel, abs_err = 0.0, 0.0
+def replay(torch, name, real, plain, used, card, results):
+    """Hold kernel ``name`` against its plain version, and against itself,
+    on the recorded calls ``used``; time both and bound them."""
+    rel, abs_err, outs = 0.0, 0.0, []
     for args, kw in used:
         got_all, again, want_all = (
             as_tuple(f(*args, **kw)) for f in (real, real, plain))
-        check(all(torch.equal(a, b) for a, b in zip(got_all, again)),
+        outs.append((args, kw, got_all))
+        check(all(a is b is None or torch.equal(a, b)
+                  for a, b in zip(got_all, again)),
               f"{name}: two launches on the same inputs differ")
         for got, want in zip(got_all, want_all):
+            if got is None and want is None:  # an output not asked for
+                continue
             d = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
             check(math.isfinite(d), f"{name}: non-finite output")
@@ -227,62 +351,79 @@ def replay_bwd(torch, name, real, plain, used, card, results):
              for a, k in used)
     plain_ms = sum(cuda_ms(torch, lambda a=a, k=k: plain(*a, **k), 1)
                    for a, k in used)
-    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, **bound(torch, name, outs))
+    del outs
     print(f"[kernel] {name}: max_abs_err {abs_err:.3e}, relative to the "
-          f"plain output's max {rel:.3e} (limit {BWD_LIMITS[name]:.1e}) | "
-          f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | {card}",
-          flush=True)
-    check(rel <= BWD_LIMITS[name], f"{name} disagrees with its plain version")
+          f"plain output's max {rel:.3e} (limit {REPLAY_LIMITS[name]:.1e}) | "
+          f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
+          f"{results[name]['bound_ms']:.3f} ms ({results[name]['bound_by']})"
+          f" | {card}", flush=True)
+    check(rel <= REPLAY_LIMITS[name],
+          f"{name} disagrees with its plain version")
+
+
+FIELDS = ("volume", "tf_table", "window_center", "window_width",
+          "light_intensities")
+
+
+def make_fwd_bwd_step(torch, vol, cam, transform, clip, width, height,
+                      render_kw, **plan_kw):
+    """An L2 fwd+bwd step of the lit frame of ``vol`` (one light, window
+    width 0.8) through `render_lit_scene(**render_kw)` against its frame at
+    window (0.5, 0.8): center -> (loss, gradient of each leaf, frame)."""
+    from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+    from tbraymarcherplugin_tpu_torch.ops import transfer as T
+    from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
+
+    dims = tuple(vol.shape)
+    dev = vol.device
+    plan = SW.plan_shearwarp(cam, transform, dims, dims, width, height,
+                             **plan_kw)
+    rays = setup_rays(cam, transform, width, height)
+    plans = (PP.LightPlan.create(LIGHT_DIR, dims),)
+
+    def params(center):
+        return PP.RenderParams(
+            vol.detach(), T.tf_ct_bone(device=dev),
+            torch.tensor(center, device=dev),
+            torch.tensor(WINDOW[1], device=dev),
+            torch.tensor([1.0], device=dev))
+
+    def render(p):
+        return PP.render_lit_scene(p, rays, clip.center, clip.direction,
+                                   plans, dims, shearwarp_plan=plan,
+                                   **render_kw)
+
+    with torch.no_grad():
+        target = render(params(WINDOW[0]))
+
+    def step(center):
+        p = params(center)
+        for f in FIELDS:
+            getattr(p, f).requires_grad_()
+        img = render(p)
+        loss = ((img - target) ** 2).mean()
+        loss.backward()
+        return (loss.detach(), [getattr(p, f).grad for f in FIELDS],
+                img.detach())
+
+    return step
 
 
 def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     """Phase 5 (see the module docstring); adds K5-K8 to ``results``."""
-    from tbraymarcherplugin_tpu_torch.models import pipeline as PP
-    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
     from tbraymarcherplugin_tpu_torch.ops import synthetic
-    from tbraymarcherplugin_tpu_torch.ops import transfer as T
-    from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
-
-    fields = ("volume", "tf_table", "window_center", "window_width",
-              "light_intensities")
 
     def make_step(vol, width, height, dtype=None, **plan_kw):
-        """An L2 fwd+bwd step of the lit frame of ``vol`` against its frame
-        at window (0.5, 0.8), planes stored as ``dtype`` (default: bf16 on
-        the card): center -> (loss, gradient of each leaf, frame)."""
-        dims = tuple(vol.shape)
-        dev = vol.device
-        plan = SW.plan_shearwarp(cam, transform, dims, dims, width, height,
-                                 **plan_kw)
-        rays = setup_rays(cam, transform, width, height)
-        plans = (PP.LightPlan.create(LIGHT_DIR, dims),)
-
-        def params(center):
-            return PP.RenderParams(
-                vol.detach(), T.tf_ct_bone(device=dev),
-                torch.tensor(center, device=dev),
-                torch.tensor(WINDOW[1], device=dev),
-                torch.tensor([1.0], device=dev))
-
-        def render(p):
-            return PP.render_lit_scene(p, rays, clip.center, clip.direction,
-                                       plans, dims, shearwarp_plan=plan,
-                                       shearwarp_dtype=dtype)
-
-        with torch.no_grad():
-            target = render(params(WINDOW[0]))
-
-        def step(center):
-            p = params(center)
-            for f in fields:
-                getattr(p, f).requires_grad_()
-            img = render(p)
-            loss = ((img - target) ** 2).mean()
-            loss.backward()
-            return (loss.detach(), [getattr(p, f).grad for f in fields],
-                    img.detach())
-
-        return step
+        """An L2 fwd+bwd step of the lit frame of ``vol`` through the fused
+        composite, planes stored as ``dtype`` (default: bf16 on the card);
+        see `make_fwd_bwd_step`."""
+        return make_fwd_bwd_step(
+            torch, vol, cam, transform, clip, width, height,
+            dict(march_impl="shearwarp", shearwarp_tf_unit="fused",
+                 shearwarp_dtype=dtype), **plan_kw)
 
     table = kernel_table()[:8]  # K1-K8: the shear-warp fwd+bwd
     step = make_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
@@ -301,7 +442,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
               f"kernel {name} was not launched by the fwd+bwd path")
     keys = []
     for loss, grads, _ in outs:
-        for f, g in zip(fields, grads):
+        for f, g in zip(FIELDS, grads):
             check(g is not None and bool(torch.isfinite(g).all())
                   and bool((g != 0).any()), f"gradient of {f}: {g}")
         keys.append((float(loss), float(grads[1].abs().sum())))
@@ -320,7 +461,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
             # K6 runs once per warp pass (both are timed, as K2's); K7 and
             # K8 once per light face (the first face is timed, as K4's)
             used = calls[name] if name == "row_lerp_bwd" else calls[name][:1]
-            replay_bwd(torch, name, getattr(mod, fn),
+            replay(torch, name, getattr(mod, fn),
                        getattr(mod, fn + "_plain"), used, card, results)
             results[name]["launches"] = launches[name]
     del calls
@@ -329,7 +470,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     with all_plain():
         _, want, _ = step(FWD_BWD_CENTERS[0])
     errs = {f: float((a - b).norm() / b.norm())
-            for f, a, b in zip(fields, outs[0][1], want)}
+            for f, a, b in zip(FIELDS, outs[0][1], want)}
     print(f"[fwd+bwd] gradients vs all-plain path on the card, |d|_2 / "
           f"|plain|_2: {errs} (limit {GRAD_VS_PLAIN_LIMIT:.0e})", flush=True)
     check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
@@ -351,7 +492,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     _, want, want_img = on_cpu(c0)
     diff = (img.cpu() - want_img).abs()
     errs = {f: float((a.cpu() - b).norm() / b.norm())
-            for f, a, b in zip(fields, grads, want)}
+            for f, a, b in zip(FIELDS, grads, want)}
     print(f"[small] fwd+bwd, card vs CPU at 24^3, 64x48: image (bf16 planes) "
           f"mean {float(diff.mean()):.2e} (limit {SMALL_MEAN_LIMIT:.0e}), max "
           f"{float(diff.max()):.2e} (limit {SMALL_MAX_LIMIT:.0e}); gradients "
@@ -429,7 +570,8 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
             rend.render(c, WIDTH, HEIGHT)
         (args, kw), = calls["march"]
         got = K9.march_lit_fused(*args, **kw)
-        want = K9.march_lit_fused_plain(*args, **kw)
+        stats = {}  # the steps and samples the kernel's rays take
+        want = K9.march_lit_fused_plain(*args, **kw, stats=stats)
         d = (got - want).abs()
         err = float(d.max())
         check(math.isfinite(err), "march: non-finite output")
@@ -437,17 +579,23 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
         ms = cuda_ms(torch, lambda: K9.march_lit_fused(*args, **kw), 5)
         plain_ms = cuda_ms(torch, lambda: K9.march_lit_fused_plain(*args,
                                                                     **kw), 1)
-        timed[label] = (err, ms, plain_ms)
+        timed[label] = (err, ms, plain_ms,
+                        bound(torch, "march", [(args, kw, got)],
+                              ops=march_ops(stats)))
         print(f"[kernel] march ({label}): max_abs_err {err:.3e} (limit "
               f"{LIMITS['march']:.0e}), pixels whose snap flipped {flips} | "
-              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | coverage "
+              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
+              f"{timed[label][3]['bound_ms']:.3f} ms "
+              f"({timed[label][3]['bound_by']}; {stats['steps']} steps, "
+              f"{stats['samples']} lit samples over {got[..., 0].numel()} "
+              f"rays) | coverage "
               f"{float((want[..., 3] > 0.01).float().mean()):.3f} | {card}",
               flush=True)
         check(err <= LIMITS["march"], "march disagrees with its plain version")
         del calls, args, kw, got, want, d
-    err, ms, plain_ms = timed["fly-through"]
+    err, ms, plain_ms, bnd = timed["fly-through"]
     results["march"].update(max_abs_err=max(t[0] for t in timed.values()),
-                            ms=ms, plain_ms=plain_ms)
+                            ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
 
     # the frame against the all-plain path (frame index 0 in both)
     rp = make_renderer()
@@ -483,23 +631,21 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
             for d in (dev, torch.device("cpu"))}
     clip = transform.local_clip_plane(ClipPlane.disabled())
     plans = (PP.LightPlan.create(LIGHT_DIR, dims),)
-    fields = ("volume", "tf_table", "window_center", "window_width",
-              "light_intensities")
     grads = []
     for d in (dev, torch.device("cpu")):
         p = PP.RenderParams(small.to(d), T.tf_ct_bone(device=d),
                             torch.tensor(0.55, device=d),
                             torch.tensor(WINDOW[1], device=d),
                             torch.tensor([1.0], device=d))
-        for f in fields:
+        for f in FIELDS:
             getattr(p, f).requires_grad_()
         img = PP.render_lit_scene(p, rays[d], clip.center, clip.direction,
                                   plans, dims, step_count=20,
                                   march_impl="blocked")
         (img ** 2).mean().backward()
-        grads.append([getattr(p, f).grad.cpu() for f in fields])
+        grads.append([getattr(p, f).grad.cpu() for f in FIELDS])
     errs = {f: float((a - b).norm() / b.norm())
-            for f, a, b in zip(fields, *grads)}
+            for f, a, b in zip(FIELDS, *grads)}
     print(f"[small] march at 24^3, 64x48, inside: frame card vs CPU max "
           f"{small_err:.2e} (limit {SMALL_MARCH_LIMIT:.0e}); blocked-march "
           f"fwd+bwd gradients, |d|_2 / |CPU|_2: {errs} (limit "
@@ -508,6 +654,199 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
     check(all(g.abs().max() > 0 for g in grads[1]), "a zero CPU gradient")
     check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
           "blocked-march gradients: card != CPU on 24^3")
+
+
+def dense_phase(torch, volume, cam, transform, clip, card, results):
+    """Phase 7 (see the module docstring); adds K10a and K10b to
+    ``results``."""
+    from tbraymarcherplugin_tpu_torch.ops import synthetic
+
+    def dense_step(vol, width, height, tf_unit="pallas",
+                   dtype=torch.float32, **plan_kw):
+        return make_fwd_bwd_step(
+            torch, vol, cam, transform, clip, width, height,
+            dict(march_impl="shearwarp", shearwarp_tf_unit=tf_unit,
+                 shearwarp_dtype=dtype), **plan_kw)
+
+    # every kernel of the dense fwd+bwd: the illumination's K3/K4 and their
+    # backward K7/K8, and the TF unit's K10a/K10b
+    path = ("tf_alpha", "light_scan", "light_scan_bwd", "tf_alpha_bwd",
+            "tf_rgba", "tf_rgba_bwd")
+    table = [t for t in kernel_table() if t[0] in path]
+    step = dense_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
+    for _, mod, fn in kernel_table():
+        getattr(mod, fn).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    outs, step_ms = [], []
+    for c in FWD_BWD_CENTERS:
+        out, ms = host_ms(torch, lambda c=c: step(c))
+        outs.append(out)
+        step_ms.append(ms)
+    launches = {name: getattr(mod, fn).launches for name, mod, fn in table}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[dense] launches {launches} | ms per step (host clock) "
+          f"{', '.join(f'{m:.2f}' for m in step_ms)} | peak memory of the "
+          f"three steps {peak:.2f} GiB (the volume and earlier phases' "
+          f"live tensors included) | {card}", flush=True)
+    for name in path:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the dense fwd+bwd path")
+    keys = []
+    for loss, grads, _ in outs:
+        for f, g in zip(FIELDS, grads):
+            check(g is not None and bool(torch.isfinite(g).all())
+                  and bool((g != 0).any()), f"gradient of {f}: {g}")
+        keys.append((float(loss), float(grads[1].abs().sum())))
+    print(f"[dense] (loss, sum |dTF|) per step: {keys}", flush=True)
+    check(len(set(keys)) == len(keys), f"steps repeat: {keys}")
+
+    # K10a and K10b on the inputs the path gave them (the first block)
+    calls = {}
+    with capture_calls(calls, ["tf_rgba", "tf_rgba_bwd"]):
+        step(FWD_BWD_CENTERS[0])
+    with torch.no_grad():
+        for name in ("tf_rgba", "tf_rgba_bwd"):
+            _, mod, fn = next(t for t in table if t[0] == name)
+            replay(torch, name, getattr(mod, fn),
+                   getattr(mod, fn + "_plain"), calls[name][:1], card,
+                   results)
+            results[name]["launches"] = launches[name]
+    del calls
+
+    # the "pallas" unit against the "xla" unit (plain PyTorch) on the card,
+    # and, as a control the limits must see, the "pallas" unit on bfloat16
+    # planes against the same
+    _, want, want_img = dense_step(volume, WIDTH, HEIGHT, "xla",
+                                   max_planes=STEPS)(FWD_BWD_CENTERS[0])
+    _, bf_grads, bf_img = dense_step(volume, WIDTH, HEIGHT,
+                                     dtype=torch.bfloat16,
+                                     max_planes=STEPS)(FWD_BWD_CENTERS[0])
+    read = {}
+    for label, img, grads in (("pallas", outs[0][2], outs[0][1]),
+                              ("bf16 control", bf_img, bf_grads)):
+        read[label] = (
+            float((img - want_img).norm() / want_img.norm()),
+            {f: float((a - b).norm() / b.norm())
+             for f, a, b in zip(FIELDS, grads, want)})
+        print(f"[dense] {label} vs \"xla\" TF unit on the card, |d|_2 / "
+              f"|xla|_2: image {read[label][0]:.2e} (limit "
+              f"{DENSE_IMAGE_LIMIT:.0e}), gradients {read[label][1]} (limit "
+              f"{DENSE_GRAD_LIMIT:.0e})", flush=True)
+    img_err, errs = read["pallas"]
+    check(img_err <= DENSE_IMAGE_LIMIT, "dense image: pallas != xla unit")
+    check(max(errs.values()) <= DENSE_GRAD_LIMIT,
+          "dense gradients: pallas != xla unit")
+    img_err, errs = read["bf16 control"]
+    check(img_err > DENSE_IMAGE_LIMIT and max(errs.values()) > DENSE_GRAD_LIMIT,
+          "the dense limits do not tell bfloat16 planes from float32")
+    del outs, want, want_img, bf_grads, bf_img
+
+    # small scene, the card against the CPU (float32 planes on both)
+    small = torch.from_numpy(synthetic.ct_like_phantom((24, 24, 24), seed=0))
+    c0 = FWD_BWD_CENTERS[0]
+    _, grads, img = dense_step(small.to(volume.device), 64, 48,
+                               max_planes=20)(c0)
+    _, want, want_img = dense_step(small, 64, 48, max_planes=20)(c0)
+    img_err = float((img.cpu() - want_img).norm() / want_img.norm())
+    errs = {f: float((a.cpu() - b).norm() / b.norm())
+            for f, a, b in zip(FIELDS, grads, want)}
+    print(f"[small] dense fwd+bwd, card vs CPU at 24^3, 64x48, |d|_2 / "
+          f"|CPU|_2: image {img_err:.2e} (limit {DENSE_IMAGE_LIMIT:.0e}), "
+          f"gradients {errs} (limit {DENSE_GRAD_LIMIT:.0e})", flush=True)
+    check(img_err <= DENSE_IMAGE_LIMIT, "dense image: card != CPU on 24^3")
+    check(max(errs.values()) <= DENSE_GRAD_LIMIT,
+          "dense gradients: card != CPU on 24^3")
+
+
+def fit_phase(torch, volume, cam, transform, clip, card):
+    """Phase 8 (see the module docstring)."""
+    import tempfile
+
+    from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+    from tbraymarcherplugin_tpu_torch.models.fitting import FitConfig, fit
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+    from tbraymarcherplugin_tpu_torch.ops import transfer as T
+    from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
+    from tbraymarcherplugin_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    dev = volume.device
+    plan = SW.plan_shearwarp(cam, transform, DIMS, DIMS, WIDTH, HEIGHT,
+                             max_planes=STEPS)
+    rays = setup_rays(cam, transform, WIDTH, HEIGHT)
+    plans = (PP.LightPlan.create(LIGHT_DIR, DIMS),)
+
+    def params(center):
+        return PP.RenderParams(volume, T.tf_ct_bone(device=dev),
+                               torch.tensor(center, device=dev),
+                               torch.tensor(WINDOW[1], device=dev),
+                               torch.tensor([1.0], device=dev))
+
+    cfg = FitConfig(steps=FIT_STEPS, march_impl="shearwarp",
+                    shearwarp_plan=plan)
+    with torch.no_grad():  # the fit's own forward: its optimum is exact
+        target = PP.render_lit_scene(params(WINDOW[0]), rays, clip.center,
+                                     clip.direction, plans, DIMS,
+                                     march_impl="shearwarp",
+                                     shearwarp_plan=plan)
+    path = ("tf_alpha", "light_scan", "light_scan_bwd", "tf_alpha_bwd")
+    table = [t for t in kernel_table() if t[0] in path]
+    with tempfile.TemporaryDirectory() as ckpt:
+        for _, mod, fn in kernel_table():
+            getattr(mod, fn).launches = 0
+        fitted, losses, metrics = fit(
+            params(FIT_START_CENTER), rays, target, clip.center,
+            clip.direction, plans, DIMS, cfg, return_metrics=True,
+            checkpoint_dir=ckpt)
+        launches = {name: getattr(mod, fn).launches for name, mod, fn in table}
+        mgr = CheckpointManager(ckpt)
+        (saved, _), meta = mgr.restore((params(0.0), None))
+        steps = mgr.all_steps()
+    step_ms = ", ".join(f"{m['ms_per_step']:.2f}" for m in metrics)
+    print(f"[fit] {FIT_STEPS} steps from window center {FIT_START_CENTER} "
+          f"(dense composite, \"xla\" TF unit): losses {losses} | window "
+          f"center {float(fitted.window_center.detach()):.4f} | ms per step (host "
+          f"clock) {step_ms} | "
+          f"launches {launches} | checkpoints {steps} | {card}", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"fit losses {losses}")
+    check(losses[-1] < losses[0], f"the fit did not descend: {losses}")
+    for name in path:
+        check(launches[name] > 0, f"kernel {name} was not launched by fit")
+    check(meta["step"] == FIT_STEPS - 1 and steps[-1] == FIT_STEPS - 1,
+          f"checkpoints {steps}")
+    for f in FIELDS:
+        got, want = getattr(saved, f), getattr(fitted, f)
+        check(got.device == want.device and torch.equal(got, want.detach()),
+              f"restored {f} differs from the fitted leaf")
+
+
+def gather_phase(torch, card, results):
+    """Phase 9 (see the module docstring); adds K11 to ``results``."""
+    from tbraymarcherplugin_tpu_torch.tools import micro
+
+    micro.gather_probe.launches = 0
+    check(micro.main() == 0, "the gather probe tool failed")
+    launches = micro.gather_probe.launches
+    check(launches > 0, "kernel gather_probe was not launched by the tool")
+    tab, idx = micro.probe_inputs(torch.device("cuda", 0))
+    got = micro.gather_probe(tab, idx)
+    want = micro.gather_probe_plain(tab, idx)
+    check(torch.equal(got, want), "gather_probe != tab[idx]")
+    flat = idx.view(-1)
+    ms = cuda_ms(torch, lambda: micro.gather_probe(tab, idx), 50)
+    plain_ms = cuda_ms(torch, lambda: micro.gather_probe_plain(tab, idx), 50)
+    library_ms = cuda_ms(torch, lambda: torch.index_select(tab, 0, flat), 50)
+    results["gather_probe"] = dict(
+        launches=launches, max_abs_err=float((got - want).abs().max()), ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        **bound(torch, "gather_probe", [((tab, idx), {}, got)]))
+    n = idx.numel()
+    print(f"[gather] launches {launches} | exact | kernel {ms:.4f} ms "
+          f"({n / ms / 1e6:.2f} G gathers/s) | tab[idx.long()] "
+          f"{plain_ms:.4f} ms ({n / plain_ms / 1e6:.2f} G/s) | index_select "
+          f"{library_ms:.4f} ms ({n / library_ms / 1e6:.2f} G/s) | bound "
+          f"{results['gather_probe']['bound_ms']:.4f} ms | {card}", flush=True)
 
 
 def main() -> int:
@@ -566,13 +905,15 @@ def main() -> int:
     cam = Camera.look_at(CAM_POS, 0.0, fov_degrees=FOV)
     results = {}
 
-    def record(name, got, want, ms, plain_ms):
+    def record(name, got, want, ms, plain_ms, calls):
         err = float((got.float() - want.float()).abs().max())
         check(math.isfinite(err), f"{name}: non-finite output")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, **bound(torch, name, calls))
         print(f"[kernel] {name}: max_abs_err {err:.3e} (limit "
               f"{LIMITS[name]:.0e}) | kernel {ms:.3f} ms | plain "
-              f"{plain_ms:.3f} ms | {card}", flush=True)
+              f"{plain_ms:.3f} ms | bound {results[name]['bound_ms']:.3f} ms "
+              f"({results[name]['bound_by']}) | {card}", flush=True)
         check(err <= LIMITS[name], f"{name} disagrees with its plain version")
 
     # K3 and K4 on the primary face of the light at 256^3.
@@ -588,7 +929,8 @@ def main() -> int:
     alpha_args = (values, tf, win, step)
     record("tf_alpha", got, want,
            cuda_ms(torch, lambda: K3.windowed_tf_alpha(*alpha_args), 20),
-           cuda_ms(torch, lambda: K3.windowed_tf_alpha_plain(*alpha_args), 3))
+           cuda_ms(torch, lambda: K3.windowed_tf_alpha_plain(*alpha_args), 3),
+           [(alpha_args, {}, got)])
 
     opacity = Lt.occluder_opacity_volume(volume, tf, win, DIMS, fp.uvw_offset,
                                          fp.step_size, clip.center,
@@ -606,7 +948,8 @@ def main() -> int:
     scan_args = (op_scan, *offs, alpha)
     record("light_scan", got, want,
            cuda_ms(torch, lambda: K4.propagate_face_scan(*scan_args), 5),
-           cuda_ms(torch, lambda: K4.propagate_face_scan_plain(*scan_args), 2))
+           cuda_ms(torch, lambda: K4.propagate_face_scan_plain(*scan_args), 2),
+           [(scan_args, {}, got)])
 
     # K1 on the full frame's plan, bf16 streams, jitter on.
     light_volume = Lt.reset_all_lights(volume, tf, win, clip.center,
@@ -623,7 +966,8 @@ def main() -> int:
     want = K1.composite_plain(**ops)
     record("composite", inter, want,
            cuda_ms(torch, lambda: K1.composite(**ops), 10),
-           cuda_ms(torch, lambda: K1.composite_plain(**ops), 2))
+           cuda_ms(torch, lambda: K1.composite_plain(**ops), 2),
+           [((), ops, inter)])
     print(f"[kernel] composite plan: n1={plan.n1} n2={plan.n2} K={plan.k} "
           f"axis={plan.axis} swap_warp={plan.swap_warp}", flush=True)
 
@@ -641,7 +985,8 @@ def main() -> int:
            sum(cuda_ms(torch, lambda r=r, i=i: K2.row_lerp(r, i, 4), 20)
                for r, i in passes),
            sum(cuda_ms(torch, lambda r=r, i=i: K2.row_lerp_plain(r, i, 4), 3)
-               for r, i in passes))
+               for r, i in passes),
+           [((r, i, 4), {}, a) for (r, i), (a, _) in zip(passes, err_in)])
     spread = float((idx1.amax(1) - idx1.amin(1)).max())
     print(f"[kernel] row_lerp pass-1 index spread per row: {spread:.1f} "
           f"texels (exact at any spread)", flush=True)
@@ -729,6 +1074,18 @@ def main() -> int:
     # --- 6. march ----------------------------------------------------------
     march_phase(torch, volume, tf, windowing, light, cam, transform, card,
                 results)
+    torch.cuda.synchronize()
+
+    # --- 7. the dense fwd+bwd ----------------------------------------------
+    dense_phase(torch, volume, cam, transform, clip, card, results)
+    torch.cuda.synchronize()
+
+    # --- 8. fit ------------------------------------------------------------
+    fit_phase(torch, volume, cam, transform, clip, card)
+    torch.cuda.synchronize()
+
+    # --- 9. the gather probe (K11) -----------------------------------------
+    gather_phase(torch, card, results)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

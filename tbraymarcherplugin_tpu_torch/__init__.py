@@ -1,7 +1,8 @@
 """TBRaymarcherPlugin on PyTorch and CUDA: the lit shear-warp frame, its
-illumination rebuild, the differentiable frame with its backward, and the
-ray march of a camera inside the volume, with hand-written kernels for
-NVIDIA Hopper (sm_90a).
+illumination rebuild, the differentiable frame with its backward (fused and
+dense shear-warp composites), the ray march of a camera inside the volume
+and the inverse-rendering loop, with hand-written kernels for NVIDIA
+Hopper (sm_90a).
 
 A port of the JAX package ``tbraymarcherplugin_tpu``, which stays the
 reference. This package imports torch and numpy, never jax. Tensors live
@@ -17,11 +18,15 @@ Module mapping (port <- JAX package):
 ``ops/transfer.py``        ``ops/transfer.py`` (no presets yet)
 ``ops/sampling.py``        ``ops/sampling.py``
 ``ops/rays.py``            ``ops/rays.py``
-``ops/synthetic.py``       ``ops/synthetic.py`` (``ct_like_phantom``)
-``ops/shearwarp.py``       ``ops/shearwarp.py`` (plan, pre-shear, warp)
+``ops/synthetic.py``       ``ops/synthetic.py`` (``ct_like_phantom``,
+                           ``sphere_volume``)
+``ops/shearwarp.py``       ``ops/shearwarp.py`` (plan, pre-shear, dense
+                           composite, warp)
 ``ops/lighting.py``        ``ops/lighting.py``
 ``ops/tf_alpha.py``        ``ops/pallas_tf.py`` (K3, ``csrc/tf_alpha.cu``;
                            K8, ``csrc/tf_alpha_bwd.cu``)
+``ops/tf_rgba.py``         ``ops/pallas_tf.py`` (K10a, ``csrc/tf_rgba.cu``;
+                           K10b, ``csrc/tf_rgba_bwd.cu``)
 ``ops/light_scan.py``      ``ops/pallas_lighting.py`` (K4,
                            ``csrc/light_scan.cu``; K7,
                            ``csrc/light_scan_bwd.cu``)
@@ -36,6 +41,11 @@ Module mapping (port <- JAX package):
 ``ops/octree.py``          ``ops/octree.py`` (pyramids, occupancy grid)
 ``models/pipeline.py``     ``models/pipeline.py`` (shear-warp and march
                            branches)
+``models/fitting.py``      ``models/fitting.py``
+``utils/checkpoint.py``    ``utils/checkpoint.py``
+``tools/micro.py``         ``benchmarks/micro.py`` section (f) (K11,
+                           ``csrc/gather_probe.cu``)
+``tools/profile_frame.py`` (per-op device time on one GPU)
 ``convert.py``             (JAX state as numpy -> the port's state)
 ``renderer.py``            ``renderer.py`` (lit mode, march fallback)
 =========================  ==============================================

@@ -9,15 +9,18 @@ directions) planned on the host. Differentiable leaves
 (:class:`RenderParams`): the volume, the TF table, the window center and
 width, and the per-light intensities. Call ``loss.backward()`` on a loss of
 :func:`render_lit_scene`'s image, and every kernel of the path runs its
-backward: K5 (`ops/shearwarp_grad.py`), K6 (`ops/warp.py`), K7
-(`ops/light_scan.py`) and K8 (`ops/tf_alpha.py`).
+backward: the illumination's K7 (`ops/light_scan.py`) and K8
+(`ops/tf_alpha.py`), and the frame's: K5 (`ops/shearwarp_grad.py`) and K6
+(`ops/warp.py`) on the fused shear-warp path, K10b (`ops/tf_rgba.py`) on
+the dense one with the ``"pallas"`` TF unit.
 
-The frame is a shear-warp frame (the differentiable
-``shearwarp_tf_unit="fused"`` path, or the forward-only
-``shearwarp_stop_early`` path) or a ray march: ``"scan"``, ``"blocked"`` and
-``"tiled2d"`` differentiate through autograd (`ops/march.py`), ``"pallas"``
-is forward-only through K9 (`ops/fused_march.py`). The dense shear-warp
-composite and the sharded gradient all-reduce raise
+The frame is a shear-warp frame (the dense composite of
+`ops.shearwarp.shearwarp_intermediate` with ``shearwarp_tf_unit`` "xla" or
+"pallas", the fused ``"fused"`` path, or the forward-only
+``shearwarp_stop_early`` path) or a ray march: ``"scan"``, ``"blocked"``
+and ``"tiled2d"`` differentiate through autograd (`ops/march.py`),
+``"pallas"`` is forward-only through K9 (`ops/fused_march.py`). The
+defaults are the JAX package's. The sharded gradient all-reduce raises
 ``NotImplementedError``.
 """
 
@@ -32,6 +35,7 @@ import torch
 from ..ops import fused_march as FM
 from ..ops import lighting as L
 from ..ops import march as M
+from ..ops import shearwarp as SW
 from ..ops.composite import shearwarp_intermediate_fused
 from ..ops.compositing import EARLY_TERMINATION_ALPHA
 from ..ops.shearwarp_grad import shearwarp_intermediate_fused_diff
@@ -120,22 +124,30 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
                      step_count: int = 150, low_cutoff: bool = True,
                      high_cutoff: bool = True, checkpoint_every: int = 32,
                      early_termination: float = EARLY_TERMINATION_ALPHA,
-                     march_impl: str = "shearwarp", shearwarp_plan=None,
-                     shearwarp_dtype=None,
+                     march_impl: str = "blocked", shearwarp_plan=None,
+                     shearwarp_dtype=torch.float32,
                      shearwarp_stop_early: bool = False,
-                     shearwarp_tf_unit: str = "fused",
+                     shearwarp_tf_unit: str = "xla",
                      grad_allreduce_axis: str | None = None) -> torch.Tensor:
     """Lit render -> (height, width, 4): the illumination rebuild, then the
-    frame by ``march_impl``.
+    frame by ``march_impl``. The defaults are the JAX package's: the
+    blocked march, and for shear-warp the dense composite with the "xla"
+    TF unit on float32 planes.
 
     - ``"shearwarp"``: the shear-warp composite and the screen warp;
       ``rays`` gives only the screen size (``rays.thickness.shape ==
       (height, width)``), the plan (`ops.shearwarp.plan_shearwarp`) encodes
       the camera. ``shearwarp_stop_early=True`` is the forward-only fast
-      path (K1 + K2, run without autograd); otherwise
-      ``shearwarp_tf_unit="fused"`` is the differentiable path (forward
-      K1-K4, backward K5-K8). ``shearwarp_dtype`` stores the pre-sheared
-      planes: bfloat16 on the card, float32 on the CPU by default.
+      path (K1 + K2, run without autograd). Otherwise
+      ``shearwarp_tf_unit`` picks the differentiable composite:
+      ``"xla"`` and ``"pallas"`` the dense composite
+      (`ops.shearwarp.shearwarp_intermediate`, checkpointed per block of 8
+      planes; ``"pallas"`` windows through K10a/K10b) and the plain screen
+      warp, ``"fused"`` the fused composite and warp (forward K1-K4,
+      backward K5-K8). ``shearwarp_dtype`` rounds the pre-shear's operands
+      (the bench's fused path stores bfloat16 planes; None: bfloat16 on
+      the card and float32 on the CPU, on every branch); the dense
+      composite's samples stay float32.
     - ``"scan"`` (`march.march_lit`, checkpointed every
       ``checkpoint_every`` steps), ``"blocked"`` (`march.march_lit_blocked`
       in blocks of ``checkpoint_every`` steps, `march_lit_tiled` above
@@ -171,14 +183,23 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
         if rays.thickness.numel() > M.DEFAULT_TILE_SIZE:
             return M.march_lit_tiled(*args, **kw)
         return M.march_lit_blocked(*args, **kw)
-    if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"shearwarp_tf_unit={shearwarp_tf_unit!r} (the dense "
-                 f"composite)"))
+    if shearwarp_tf_unit not in ("fused", "xla", "pallas"):
+        raise ValueError(f"unknown shearwarp_tf_unit {shearwarp_tf_unit!r}; "
+                         f"choose 'fused', 'xla' or 'pallas'")
     if shearwarp_plan is None:
         raise ValueError("march_impl='shearwarp' needs shearwarp_plan "
                          "(ops.shearwarp.plan_shearwarp)")
     h, w = rays.thickness.shape
+    if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
+        win = _windowing_vec4(params, low_cutoff, high_cutoff)
+        lv = compute_illumination(params, light_plans, clip_center,
+                                  clip_direction, light_dims, low_cutoff,
+                                  high_cutoff)
+        inter = SW.shearwarp_intermediate(
+            params.volume, params.tf_table, lv, shearwarp_plan, win,
+            clip_center, clip_direction, early_termination=early_termination,
+            compute_dtype=shearwarp_dtype, tf_unit=shearwarp_tf_unit)
+        return SW.warp_to_screen(inter, shearwarp_plan, w, h)
     composite = (shearwarp_intermediate_fused if shearwarp_stop_early
                  else shearwarp_intermediate_fused_diff)
     with torch.set_grad_enabled(torch.is_grad_enabled()

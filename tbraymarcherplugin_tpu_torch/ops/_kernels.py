@@ -52,6 +52,9 @@ SIGNATURES = {
     + [_P, _P],
     "tbr_sum_rows": [_P, _P, _I, _I, _P],
     "tbr_march": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    "tbr_tf_rgba": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
+    "tbr_tf_rgba_bwd": [_P] * 8 + [ctypes.c_longlong] * 2 + [_I, _P],
+    "tbr_gather_probe": [_P] * 3 + [ctypes.c_longlong, _I, _P],
 }
 
 _lib = None

@@ -18,7 +18,8 @@ import torch
 from . import _kernels
 from .compositing import EARLY_TERMINATION_ALPHA
 from .sampling import VOLUME_DENSITY
-from .shearwarp import ShearWarpPlan, _resample_block, _t, _volume_planes
+from .shearwarp import (ShearWarpPlan, _pad_to, _resample_block, _t,
+                        _volume_planes, plane_dtype)
 from .transfer import windowed_tf_range_occupied
 
 KB = 16  # planes per occupancy chunk
@@ -188,13 +189,12 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
                       compute_dtype=None, jitter=None) -> dict:
     """The keyword arguments of :func:`composite` for one frame.
 
-    ``compute_dtype`` is the storage type of the pre-sheared planes:
-    bfloat16 on the card (the JAX accelerator path's default), float32 on
-    the CPU. ``jitter``: optional (n1, n2) per-pixel lam phase in [0, 1).
+    ``compute_dtype`` is the storage type of the pre-sheared planes (None:
+    `shearwarp.plane_dtype`'s, bfloat16 on the card and float32 on the
+    CPU). ``jitter``: optional (n1, n2) per-pixel lam phase in [0, 1).
     """
     dev = volume.device
-    if compute_dtype is None:
-        compute_dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+    compute_dtype = plane_dtype(compute_dtype, dev)
     n1, n2, K = plan.n1, plan.n2, plan.k
     Kp = _ceil_to(K, KB)
     nch = Kp // KB
@@ -207,14 +207,11 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     # lerps toward a copy of itself; other padding is masked). Repeating the
     # last plane's slice and coefficients before the resample gives those
     # copies without a second pass over the streams.
-    def edge_pad(x):
-        return torch.cat([x, x[-1:].expand(Kbuf - K, *x.shape[1:])])
-
     def coeff(name):
-        return edge_pad(_t(getattr(plan, name), dev))
+        return _pad_to(_t(getattr(plan, name), dev), Kbuf)
 
     vplanes = _volume_planes(volume.permute(ax), plan)
-    W = _resample_block(edge_pad(vplanes), coeff("a1"), coeff("b1"),
+    W = _resample_block(_pad_to(vplanes, Kbuf), coeff("a1"), coeff("b1"),
                         coeff("a2"), coeff("b2"), n1, n2, compute_dtype)
     light_t = light_volume.permute(ax)
     lm0 = _t(plan.lm0, dev)
@@ -222,7 +219,7 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     l1 = light_t[(lm0 + 1).clamp(max=light_t.shape[0] - 1)]
     lmt = _t(plan.lmt, dev)[:, None, None]
     lplanes = l0 * (1.0 - lmt) + l1 * lmt
-    L = _resample_block(edge_pad(lplanes), coeff("la1"), coeff("lb1"),
+    L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"), coeff("lb1"),
                         coeff("la2"), coeff("lb2"), n1, n2, compute_dtype)
 
     # Chunk occupancy: can any value in a chunk's range give alpha > 0?

@@ -80,15 +80,19 @@ def _plain_sample(volume, tf_table, light_volume, params, px, py, pz, sw):
 
 def _march_plain(ch, volume, light_volume, tf_table, params,
                  step_count: int, early_termination: float,
-                 compat_final_step: bool) -> torch.Tensor:
+                 compat_final_step: bool, stats: dict | None = None
+                 ) -> torch.Tensor:
     """The kernel's march over the (8, H, W) fields ``ch`` -> (H, W, 4),
     one PyTorch operation per step of the kernel, all rays at once, with
-    masks in place of the kernel's per-ray loop bound and exit."""
+    masks in place of the kernel's per-ray loop bound and exit. ``stats``,
+    when given, receives the work the kernel does on these inputs (see
+    :func:`march_lit_fused_plain`)."""
     p0x, p0y, p0z, svx, svy, svz, n_full, ff = ch.unbind(0)
     step_world = VOLUME_DENSITY * (1.0 / step_count)
     rr, rg, rb, alpha = (torch.zeros_like(n_full) for _ in range(4))
     term = torch.zeros_like(n_full, dtype=torch.bool)
     one = torch.ones_like(alpha)
+    steps = samples = 0
 
     def composite(m, sample):
         ok, cr, cg, cb, a = sample
@@ -101,11 +105,15 @@ def _march_plain(ch, volume, light_volume, tf_table, params,
 
     for k in range(_loop_bound(n_full, step_count)):
         kk = float(k + 1)
+        live = (k < n_full) & ~term
         m, rr, rg, rb, alpha = composite(
-            (k < n_full) & ~term,
+            live,
             _plain_sample(volume, tf_table, light_volume, params,
                           p0x + svx * kk, p0y + svy * kk, p0z + svz * kk,
                           step_world))
+        if stats is not None:
+            steps = steps + live.sum()
+            samples = samples + m.sum()
         hit = m & (alpha > early_termination)  # the snap ends the ray
         alpha = torch.where(hit, one, alpha)
         term = term | hit
@@ -113,10 +121,14 @@ def _march_plain(ch, volume, light_volume, tf_table, params,
             break  # every ray is done: the kernel's threads have all exited
     kk = n_full + ff
     sw = VOLUME_DENSITY * ff if compat_final_step else step_world * ff
-    _, rr, rg, rb, alpha = composite(
-        ~term & (ff > 0.0),
+    live = ~term & (ff > 0.0)
+    m, rr, rg, rb, alpha = composite(
+        live,
         _plain_sample(volume, tf_table, light_volume, params,
                       p0x + svx * kk, p0y + svy * kk, p0z + svz * kk, sw))
+    if stats is not None:
+        stats["steps"] = int(steps + live.sum())
+        stats["samples"] = int(samples + m.sum())
     return torch.stack([rr, rg, rb, alpha], -1)
 
 
@@ -124,12 +136,20 @@ def march_lit_fused_plain(volume, tf_table, light_volume, rays: RayBatch,
                           windowing_vec4, clip_center, clip_direction,
                           jitter=None, step_count: int = 150,
                           early_termination: float = EARLY_TERMINATION_ALPHA,
-                          compat_final_step: bool = True) -> torch.Tensor:
-    """K9's arithmetic in plain PyTorch; see :func:`march_lit_fused`."""
+                          compat_final_step: bool = True,
+                          stats: dict | None = None) -> torch.Tensor:
+    """K9's arithmetic in plain PyTorch; see :func:`march_lit_fused`.
+
+    ``stats``, when given, receives the kernel's work on these inputs:
+    ``"steps"``, the samples its threads take (every step up to a ray's
+    termination or exit, and the final fractional sample of a ray that did
+    not terminate), and ``"samples"``, those of them that are neither
+    clipped nor cut and so are looked up, lit and composited."""
     ch, params = _march_inputs(volume, rays, windowing_vec4, clip_center,
                                clip_direction, jitter, step_count)
     return _march_plain(ch, volume, light_volume, tf_table, params,
-                        step_count, early_termination, compat_final_step)
+                        step_count, early_termination, compat_final_step,
+                        stats)
 
 
 def march_lit_fused(volume, tf_table, light_volume, rays: RayBatch,

@@ -1,10 +1,13 @@
-"""Shear-warp factorization: host plan, pre-shear and the plain screen warp.
+"""Shear-warp factorization: host plan, pre-shear, the dense composite and
+the plain screen warp.
 
 Counterpart of `tbraymarcherplugin_tpu/ops/shearwarp.py`. The perspective
 view factors into (1) a separable per-plane 2D resample of the volume onto
 an intermediate ray grid, two banded matrices per plane applied as batched
-matmuls, (2) a front-to-back composite over planes (`composite.py`) and
-(3) a two-pass 1D warp of the intermediate image to the screen
+matmuls, (2) a front-to-back composite over planes
+(:func:`shearwarp_intermediate` here, dense and differentiable through
+autograd, or the fused kernels of `composite.py` and `shearwarp_grad.py`)
+and (3) a two-pass 1D warp of the intermediate image to the screen
 (`warp.py`; :func:`warp_to_screen` here is its plain form).
 
 :func:`plan_shearwarp` is host numpy and gives the same float32 numbers as
@@ -18,6 +21,12 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from .compositing import EARLY_TERMINATION_ALPHA
+from .sampling import sample_windowed_transfer_function
+from .tf_rgba import windowed_tf_rgba_vjp
+from .transfer import windowed_tf_range_occupied
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,14 +277,192 @@ def _resample_matrices(a, b, dim: int, n: int, dtype) -> torch.Tensor:
     return S.to(dtype)
 
 
+def plane_dtype(compute_dtype, device) -> torch.dtype:
+    """The storage type of pre-sheared plane operands: ``compute_dtype``,
+    or for None bfloat16 on the card (the JAX accelerator path's default)
+    and float32 on the CPU; one meaning for every shear-warp composite."""
+    if compute_dtype is not None:
+        return compute_dtype
+    return torch.float32 if torch.device(device).type == "cpu" else (
+        torch.bfloat16)
+
+
 def _resample_block(slices, a1, b1, a2, b2, n1: int, n2: int,
-                    dtype=torch.float32) -> torch.Tensor:
+                    dtype=torch.float32, f32_out: bool = False) -> torch.Tensor:
     """(B, D1, D2) slices -> (B, n1, n2) sheared samples by two batched
-    banded matmuls (exactly separable bilinear), stored as ``dtype``."""
+    banded matmuls (exactly separable bilinear), stored as ``dtype``.
+
+    ``f32_out``: the operands are rounded to ``dtype`` but the products are
+    float32, as the JAX package's ``preferred_element_type=float32`` einsums
+    (the dense composite's samples); the fused path stores ``dtype``."""
     S1 = _resample_matrices(a1, b1, slices.shape[1], n1, dtype)
     S2 = _resample_matrices(a2, b2, slices.shape[2], n2, dtype)
-    t = torch.bmm(S1.transpose(1, 2), slices.to(dtype))
-    return torch.bmm(t, S2)
+    if not f32_out:
+        t = torch.bmm(S1.transpose(1, 2), slices.to(dtype))
+        return torch.bmm(t, S2)
+    f32 = torch.float32
+    t = torch.bmm(S1.transpose(1, 2).to(f32), slices.to(dtype).to(f32))
+    return torch.bmm(t.to(dtype).to(f32), S2.to(f32))
+
+
+def _plane_value_ranges(sl_mn, sl_mx, plan: ShearWarpPlan):
+    """Conservative per-plane (min, max) from per-slice stats: a plane's
+    values are convex combinations of (at most two) slices' texels."""
+    dev = sl_mn.device
+    pmn, pmx = sl_mn[_t(plan.m_src, dev)], sl_mx[_t(plan.m_src, dev)]
+    if plan.mfrac is not None:
+        hi = _t(plan.msrc_hi, dev)
+        pmn = torch.minimum(pmn, sl_mn[hi])
+        pmx = torch.maximum(pmx, sl_mx[hi])
+    return pmn, pmx
+
+
+def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with its last entry repeated along axis 0 up to ``n`` rows."""
+    if x.shape[0] >= n:
+        return x
+    return torch.cat([x, x[-1:].expand(n - x.shape[0], *x.shape[1:])])
+
+
+def shearwarp_intermediate(volume, tf_table, light_volume, plan: ShearWarpPlan,
+                           windowing_vec4, clip_center, clip_direction,
+                           block_size: int = 8,
+                           early_termination: float = EARLY_TERMINATION_ALPHA,
+                           stop_early: bool = False,
+                           compute_dtype=torch.float32,
+                           tf_unit: str = "xla") -> torch.Tensor:
+    """The dense front-to-back composite onto the intermediate ray grid ->
+    (n1, n2, 4) RGBA, in blocks of ``block_size`` planes.
+
+    Each block pre-shears its volume and light planes (float32 products of
+    ``compute_dtype`` operands, as the JAX package's einsums with
+    ``preferred_element_type=float32``; None: see :func:`plane_dtype`),
+    windows them through the TF (``tf_unit``
+    ``"xla"``: `sampling.sample_windowed_transfer_function`; ``"pallas"``:
+    `tf_rgba.windowed_tf_rgba_vjp`, kernels K10a/K10b), masks samples
+    outside the cube, behind the clip plane or on padding planes, and
+    composites with a cumulative product of (1 - alpha) and exact
+    first-crossing early termination.
+
+    ``stop_early=False`` is differentiable to the volume, the TF, the window
+    and the light volume; each block runs under a non-reentrant
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``), so
+    the backward recomputes one block at a time. ``stop_early=True`` is
+    forward only: it skips a block whose planes' value range gives no alpha
+    and leaves once every ray has terminated.
+
+    The JAX package slices the per-plane ``lam`` of the last block without
+    padding it (``dynamic_slice`` clamps its start), which shifts the clip
+    test of that block's planes when ``block_size`` does not divide the
+    plane count; here ``lam`` is padded like every other per-plane array.
+    """
+    from .composite import _clip_step_fields  # composite imports this module
+
+    if tf_unit not in ("xla", "pallas"):
+        raise ValueError(f"unknown tf_unit {tf_unit!r}; choose 'xla' or "
+                         f"'pallas'")
+    dev = volume.device
+    compute_dtype = plane_dtype(compute_dtype, dev)
+    n1, n2, K = plan.n1, plan.n2, plan.k
+    B = block_size
+    nblk = -(-K // B)
+    Kp = nblk * B
+    win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=dev)
+
+    ax = (plan.axis,) + tuple(plan.axes12)
+    vol_t = volume.permute(ax)
+    light_t = light_volume.permute(ax)
+    vplanes_all = _pad_to(_volume_planes(vol_t, plan), Kp)
+    coeff = [_pad_to(_t(getattr(plan, name), dev), Kp) for name in (
+        "a1", "b1", "a2", "b2", "la1", "lb1", "la2", "lb2", "lmt", "lam")]
+    lm0 = _pad_to(_t(plan.lm0, dev), Kp)
+    lm0_hi = (lm0 + 1).clamp(max=light_t.shape[0] - 1)
+    plane_valid = torch.arange(Kp, device=dev) < K
+    ii = torch.arange(n1, dtype=torch.float32, device=dev)
+    jj = torch.arange(n2, dtype=torch.float32, device=dev)
+    step_world, e0, e1 = _clip_step_fields(plan, clip_center, clip_direction,
+                                           dev)
+    D1 = volume.shape[plan.axes12[0]]
+    D2 = volume.shape[plan.axes12[1]]
+    step_ids = torch.arange(B, device=dev).reshape(B, 1, 1)
+
+    def block_values(b):
+        """Sheared volume and light samples (B, n1, n2) and their mask."""
+        sl = slice(b * B, (b + 1) * B)
+        a1b, b1b, a2b, b2b, la1b, lb1b, la2b, lb2b, lmtb, lamb = (
+            x[sl] for x in coeff)
+        vals = _resample_block(vplanes_all[sl], a1b, b1b, a2b, b2b, n1, n2,
+                               compute_dtype, f32_out=True)
+        t = lmtb[:, None, None]
+        lblk = light_t[lm0[sl]] * (1.0 - t) + light_t[lm0_hi[sl]] * t
+        light = _resample_block(lblk, la1b, lb1b, la2b, lb2b, n1, n2,
+                                compute_dtype, f32_out=True)
+        v1 = a1b[:, None] + b1b[:, None] * ii[None, :]  # (B, n1)
+        v2 = a2b[:, None] + b2b[:, None] * jj[None, :]  # (B, n2)
+        in1 = (v1 >= -0.5) & (v1 <= D1 - 0.5)
+        in2 = (v2 >= -0.5) & (v2 <= D2 - 0.5)
+        clipped = (e0 + lamb[:, None, None] * e1[None]) <= 0.0
+        m = (in1[:, :, None] & in2[:, None, :] & ~clipped
+             & plane_valid[sl][:, None, None])
+        return vals, light, m
+
+    def block_composite(rgb_acc, alpha_acc, terminated, b):
+        vals, light, m = block_values(b)
+        if tf_unit == "pallas":
+            rgba = windowed_tf_rgba_vjp(vals, tf_table, win, step_world)
+        else:
+            rgba = sample_windowed_transfer_function(vals, step_world[None],
+                                                     tf_table, win)
+        zero = rgba.new_zeros(())
+        a = torch.where(m, rgba[..., 3], zero)
+        rgb = torch.where(m[..., None], rgba[..., :3] * light[..., None],
+                          zero)
+        t_incl = torch.cumprod(1.0 - a, dim=0)
+        t_excl = torch.cat([torch.ones_like(t_incl[:1]), t_incl[:-1]], 0)
+        alpha_after = alpha_acc[None] + (1.0 - alpha_acc[None]) * (1.0 - t_incl)
+        crossed = m & (alpha_after > early_termination)
+        any_crossed = crossed.any(0)
+        kc = crossed.to(torch.uint8).argmax(0)  # the first crossing plane
+        contrib = torch.where(any_crossed[None], step_ids <= kc[None],
+                              torch.ones_like(crossed))
+        contrib = contrib & ~terminated[None]
+        w = torch.where(contrib, t_excl * a, zero)
+        rgb_out = rgb_acc + (1.0 - alpha_acc)[..., None] * (
+            w[..., None] * rgb).sum(0)
+        alpha_noterm = alpha_acc + (1.0 - alpha_acc) * (1.0 - t_incl[-1])
+        newly = any_crossed & ~terminated
+        alpha_out = torch.where(
+            newly, torch.ones_like(alpha_acc),
+            torch.where(terminated, alpha_acc, alpha_noterm))
+        return rgb_out, alpha_out, terminated | any_crossed
+
+    carry = (torch.zeros((n1, n2, 3), device=dev),
+             torch.zeros((n1, n2), device=dev),
+             torch.zeros((n1, n2), dtype=torch.bool, device=dev))
+    if stop_early:
+        with torch.no_grad():
+            pmn, pmx = _plane_value_ranges(vol_t.amin((1, 2)),
+                                           vol_t.amax((1, 2)), plan)
+            blk_occ = windowed_tf_range_occupied(
+                _pad_to(pmn, Kp).view(nblk, B).amin(1),
+                _pad_to(pmx, Kp).view(nblk, B).amax(1), win, tf_table)
+            for b, occupied in enumerate(blk_occ.tolist()):
+                if bool(carry[2].all()):
+                    break
+                if occupied:
+                    carry = block_composite(*carry, b)
+    else:
+        grad = torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in (volume, tf_table, light_volume, win))
+        for b in range(nblk):
+            if grad:
+                carry = checkpoint(block_composite, *carry, b,
+                                   use_reentrant=False)
+            else:
+                carry = block_composite(*carry, b)
+    rgb, alpha, _ = carry
+    return torch.cat([rgb, alpha[..., None]], dim=-1)
 
 
 def _lerp_take(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -365,3 +552,19 @@ def warp_to_screen(intermediate: torch.Tensor, plan: ShearWarpPlan,
     if plan.swap_warp:
         img = img.permute(1, 0, 2)
     return img.contiguous()
+
+
+def shearwarp_lit(volume, tf_table, light_volume, plan: ShearWarpPlan,
+                  windowing_vec4, clip_center, clip_direction, width: int,
+                  height: int, block_size: int = 8,
+                  early_termination: float = EARLY_TERMINATION_ALPHA,
+                  stop_early: bool = False,
+                  compute_dtype=torch.float32) -> torch.Tensor:
+    """The dense shear-warp lit render to a (height, width, 4) screen
+    image: :func:`shearwarp_intermediate`, then :func:`warp_to_screen`."""
+    inter = shearwarp_intermediate(
+        volume, tf_table, light_volume, plan, windowing_vec4, clip_center,
+        clip_direction, block_size=block_size,
+        early_termination=early_termination, stop_early=stop_early,
+        compute_dtype=compute_dtype)
+    return warp_to_screen(inter, plan, width, height)

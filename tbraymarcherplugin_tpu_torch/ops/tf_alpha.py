@@ -25,10 +25,10 @@ def _window(windowing_vec4, device):
     return win[0], win[1], win[2], win[3]
 
 
-def windowed_tf_alpha_plain(values: torch.Tensor, tf_table: torch.Tensor,
-                            windowing_vec4, step_size: float) -> torch.Tensor:
-    """Step-corrected windowed TF alpha per element: the kernel's arithmetic,
-    one PyTorch operation per step."""
+def _taps(values, windowing_vec4):
+    """(tf_pos, cut, x, i0, i1, frac) of the windowed, clamp-addressed
+    256-texel lookup, one PyTorch operation per step (the kernels'
+    `tbr_tf_pos`, `tbr_cut` and `tbr_tf_taps`)."""
     center, width, low_c, high_c = _window(windowing_vec4, values.device)
     tf_pos = (values - center + width * 0.5) / width
     cut = ((tf_pos < 0.0) & (low_c > 0.0)) | ((tf_pos > 1.0) & (high_c > 0.0))
@@ -37,6 +37,14 @@ def windowed_tf_alpha_plain(values: torch.Tensor, tf_table: torch.Tensor,
     frac = x - i0f
     i0 = i0f.clamp(0.0, 255.0).long()
     i1 = (i0f + 1.0).clamp(0.0, 255.0).long()
+    return tf_pos, cut, x, i0, i1, frac
+
+
+def windowed_tf_alpha_plain(values: torch.Tensor, tf_table: torch.Tensor,
+                            windowing_vec4, step_size: float) -> torch.Tensor:
+    """Step-corrected windowed TF alpha per element: the kernel's arithmetic,
+    one PyTorch operation per step."""
+    _, cut, _, i0, i1, frac = _taps(values, windowing_vec4)
     table = tf_table[:, 3]
     a0, a1 = table[i0], table[i1]
     alpha = (a0 + (a1 - a0) * frac).clamp(0.0, 1.0)
@@ -93,15 +101,9 @@ def windowed_tf_alpha_bwd_plain(values, tf_table, windowing_vec4,
     (d center, d width, 0, 0)); the kernel's arithmetic, one PyTorch
     operation per step."""
     dev = values.device
-    center, width, low_c, high_c = _window(windowing_vec4, dev)
+    width = _window(windowing_vec4, dev)[1]
     step = float(step_size)
-    tf_pos = (values - center + width * 0.5) / width
-    cut = ((tf_pos < 0.0) & (low_c > 0.0)) | ((tf_pos > 1.0) & (high_c > 0.0))
-    x = tf_pos * 256.0 - 0.5
-    i0f = torch.floor(x)
-    frac = x - i0f
-    i0 = i0f.clamp(0.0, 255.0).long()
-    i1 = (i0f + 1.0).clamp(0.0, 255.0).long()
+    tf_pos, cut, x, i0, i1, frac = _taps(values, windowing_vec4)
     table = tf_table[:, 3]
     a0, a1 = table[i0], table[i1]
     a_raw = a0 + (a1 - a0) * frac

@@ -59,9 +59,47 @@ def sample_tf(tf_table: torch.Tensor, tf_pos: torch.Tensor) -> torch.Tensor:
     frac = x - i0
     i0c = i0.clamp(0, res - 1).long()
     i1c = (i0 + 1.0).clamp(0, res - 1).long()
-    c0 = tf_table[i0c]
-    c1 = tf_table[i1c]
+    c0 = _TakeRows.apply(tf_table, i0c)
+    c1 = _TakeRows.apply(tf_table, i1c)
     return c0 + (c1 - c0) * frac[..., None]
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` for a small table (the 256-texel TF) and many indices,
+    by `index_select`, whose adjoint sums the cotangent rows of each index
+    with one `torch.bincount` (a shared-memory histogram on the card).
+    Indexing's own adjoint sorts the indices and walks each index's
+    duplicates one after another: a 1080p block of the dense composite puts
+    millions of samples on a few TF texels, and that walk took about 6 s
+    per block on an H100; its forward took about 4 ms per lookup.
+
+    On the card `bincount` adds with atomics, so the TF gradient of every
+    path through :func:`sample_tf` changes in its last bits from run to
+    run. Under ``torch.use_deterministic_algorithms(True)`` the adjoint is
+    indexing's deterministic (and slow) sorted accumulation instead."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = tuple(table.shape)
+        return table.index_select(0, idx.reshape(-1)).reshape(
+            idx.shape + table.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        rows, cols = ctx.shape[0], int(np.prod(ctx.shape[1:]))
+        bins = (idx.reshape(-1, 1) * cols
+                + torch.arange(cols, device=idx.device)).reshape(-1)
+        w = g.reshape(-1).to(torch.float32)
+        if torch.are_deterministic_algorithms_enabled():
+            d = w.new_zeros(rows * cols).index_put_((bins,), w,
+                                                    accumulate=True)
+        else:
+            d = torch.bincount(bins, w, minlength=rows * cols)
+        return d.reshape(ctx.shape).to(g.dtype), None
 
 
 def windowed_tf_range_occupied(mn, mx, windowing_vec4, tf_table):

@@ -1,6 +1,6 @@
-"""Where the time of a lit frame, an illumination rebuild, a light move, a
-differentiable fwd+bwd step and a fly-through frame goes on one CUDA
-device.
+"""Where the time of a lit frame, an illumination rebuild, a light move,
+differentiable fwd+bwd steps, a fit step and a fly-through frame goes on
+one CUDA device.
 
     python -m tbraymarcherplugin_tpu_torch.tools.profile_frame
 
@@ -8,9 +8,14 @@ Builds the bench scene (256^3 `ct_like_phantom(seed=0)`, bone TF, window
 (0.5, 0.8), one light at (0.3, 0.1, -0.95), camera
 `look_at((0.1, -2.3, 0.4), 0)` at 40 degrees, 1920x1080, 150 planes,
 jitter on) through `Renderer`, and the same scene without jitter through
-`models.pipeline.render_lit_scene` for ``fwd_bwd``: one
+`models.pipeline.render_lit_scene` for ``fwd_bwd`` (the fused composite,
+``shearwarp_tf_unit="fused"``, bf16 planes) and ``dense_fwd_bwd`` (the
+dense composite with the ``"pallas"`` TF unit, kernels K10a/K10b): one
 ``loss.backward()`` of the L2 loss against the frame at window
-(0.5, 0.8), the window center moving by 0.01 per call from 0.55; and for
+(0.5, 0.8), the window center moving by 0.01 per call from 0.55; for
+``fit_step`` one step of `models.fitting.fit` (``march_impl="shearwarp"``,
+the dense composite with its default "xla" TF unit, TF and window
+trained) from window center 0.6 toward that frame; and for
 ``fly_through`` the same scene from a camera inside the volume
 (`look_at((0.1, -0.3, 0.05), 0)` at 60 degrees), where shear-warp has no
 plan and the frame is the ray march (kernel K9). It warms every phase up
@@ -136,6 +141,7 @@ def main() -> int:
         return 2
 
     from ..models import pipeline as PP
+    from ..models.fitting import FitConfig, fit
     from ..ops import shearwarp as SW
     from ..ops import synthetic
     from ..ops import transfer as T
@@ -193,25 +199,37 @@ def main() -> int:
             torch.tensor(WINDOW[1], device=dev),
             torch.tensor([1.0], device=dev))
 
-    def render(p):
-        return PP.render_lit_scene(p, rays, clip.center, clip.direction,
-                                   light_plans, DIMS, shearwarp_plan=plan)
+    def render(p, tf_unit="fused"):
+        return PP.render_lit_scene(
+            p, rays, clip.center, clip.direction, light_plans, DIMS,
+            march_impl="shearwarp", shearwarp_plan=plan,
+            shearwarp_tf_unit=tf_unit,
+            shearwarp_dtype=(torch.bfloat16 if tf_unit == "fused"
+                             else torch.float32))
 
     with torch.no_grad():
         target = render(params(WINDOW[0]))
     steps = [0]
 
-    def fwd_bwd():
+    def step(tf_unit):
         steps[0] += 1
         p = params(0.55 + 0.01 * (steps[0] % 3))
         for t in (p.volume, p.tf_table, p.window_center, p.window_width,
                   p.light_intensities):
             t.requires_grad_()
-        ((render(p) - target) ** 2).mean().backward()
+        ((render(p, tf_unit) - target) ** 2).mean().backward()
+
+    fit_cfg = FitConfig(steps=1, march_impl="shearwarp", shearwarp_plan=plan)
+
+    def fit_step():
+        fit(params(0.6), rays, target, clip.center, clip.direction,
+            light_plans, DIMS, fit_cfg)
 
     phases = (("rebuild", rebuild), ("frame", frame),
-              ("light_move", light_move), ("fwd_bwd", fwd_bwd),
-              ("fly_through", fly_through))
+              ("light_move", light_move),
+              ("fwd_bwd", lambda: step("fused")),
+              ("dense_fwd_bwd", lambda: step("pallas")),
+              ("fit_step", fit_step), ("fly_through", fly_through))
     for _, fn in phases:  # build the kernels, the plan and the caches
         fn()
     print(f"[profile] {torch.cuda.get_device_name(0)} | {card} | torch "

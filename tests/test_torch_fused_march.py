@@ -91,6 +91,38 @@ def test_fused_march_matches_port_blocked_march():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=CLIP_ATOL)
 
 
+@pytest.mark.parametrize("case", ["translucent", "clip_cut_snap"])
+def test_plain_march_counts_the_kernels_work(case):
+    """``stats`` counts the steps K9's threads take and the samples they
+    light: every step of every ray and its final one when no ray ends
+    early and nothing is clipped or cut; fewer steps once rays snap, and
+    fewer lit samples than steps with a clip plane and a low cutoff."""
+    if case == "translucent":
+        s = _translucent(_scene(img=(16, 16), clip=NO_CLIP,
+                                win=(0.5, 1.0, 1.0, 1.0)))
+        steps = 49
+    else:
+        s = _scene()
+        s["tf"] = np.asarray(JT.tf_from_keypoints(
+            [0, 0.5, 1], [[0, 0, 0, 0], [0.5, 0.4, 0.3, 0.6], [1, 1, 1, 1]]))
+        steps = 150
+    stats = {}
+    img = _port(FM.march_lit_fused_plain, s, step_count=steps, stats=stats)
+    np.testing.assert_array_equal(
+        img, _port(FM.march_lit_fused_plain, s, step_count=steps))
+    rays = RayBatch(*(_t(x) for x in s["rays"]))
+    jit = None if s["jit"] is None else _t(s["jit"])
+    ch, _ = FM._march_inputs(_t(s["vol"]), rays, _t(s["win"]), s["cc"],
+                             s["cd"], jit, steps)
+    every = int(ch[6].nan_to_num(0.0).clamp(min=0.0).ceil().sum()
+                + (ch[7] > 0.0).sum())
+    if case == "translucent":
+        assert stats == dict(steps=every, samples=every)
+    else:
+        assert (img[..., 3] == 1.0).any()  # some rays snap
+        assert 0 < stats["samples"] < stats["steps"] < every
+
+
 def test_fused_march_is_forward_only():
     s = _scene(img=(8, 8))
     rays = RayBatch(*(_t(x) for x in s["rays"]))

@@ -79,7 +79,8 @@ def test_render_lit_scene_grads_match_jax(rng):
     params, rays, plan, plans = _port_scene(jparams)
     clip = PS.ClipPlane.disabled()
     img = PP.render_lit_scene(params, rays, clip.center, clip.direction,
-                              plans, DIMS, shearwarp_plan=plan)
+                              plans, DIMS, march_impl="shearwarp",
+                              shearwarp_plan=plan, shearwarp_tf_unit="fused")
     assert img.shape == (H, W, 4)
     got_loss = (img * torch.from_numpy(g)).sum()
     np.testing.assert_allclose(float(got_loss.detach()), float(want_loss),
@@ -103,17 +104,14 @@ def test_stop_early_matches_jax_fused_forward():
     params, rays, plan, plans = _port_scene(jparams, requires_grad=True)
     clip = PS.ClipPlane.disabled()
     got = PP.render_lit_scene(params, rays, clip.center, clip.direction,
-                              plans, DIMS, shearwarp_plan=plan,
-                              shearwarp_stop_early=True)
+                              plans, DIMS, march_impl="shearwarp",
+                              shearwarp_plan=plan, shearwarp_stop_early=True)
     assert not got.requires_grad  # forward only
     assert float(got[..., 3].max()) > 0.5
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(shearwarp_tf_unit="pallas"), dict(shearwarp_tf_unit="xla"),
-    dict(grad_allreduce_axis="data"),
-])
+@pytest.mark.parametrize("kw", [dict(grad_allreduce_axis="data")])
 def test_unported_branches_raise(kw):
     jparams = _jax_scene()[0]
     params, rays, plan, plans = _port_scene(jparams, requires_grad=False)
@@ -121,6 +119,32 @@ def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         PP.render_lit_scene(params, rays, clip.center, clip.direction, plans,
                             DIMS, shearwarp_plan=plan, **kw)
+
+
+def test_defaults_match_jax(rng):
+    """No implementation argument on either side: the JAX package's
+    defaults (the blocked march, and for shear-warp the dense "xla"
+    composite on float32 planes) are the port's, so the same call renders
+    the same image."""
+    jparams, jrays, jplan, jplans = _jax_scene()
+    params, rays, plan, plans = _port_scene(jparams, requires_grad=False)
+    jclip, clip = JS.ClipPlane.disabled(), PS.ClipPlane.disabled()
+    kw = dict(step_count=MARCH_STEPS)
+    want = np.asarray(JP.render_lit_scene(
+        jparams, jrays, jclip.center, jclip.direction, jplans, DIMS, **kw))
+    got = PP.render_lit_scene(params, rays, clip.center, clip.direction,
+                              plans, DIMS, **kw)
+    assert want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=5e-5)
+    # the shear-warp branch with only the plan given: the dense composite
+    want = np.asarray(JP.render_lit_scene(
+        jparams, jrays, jclip.center, jclip.direction, jplans, DIMS,
+        march_impl="shearwarp", shearwarp_plan=jplan))
+    got = PP.render_lit_scene(params, rays, clip.center, clip.direction,
+                              plans, DIMS, march_impl="shearwarp",
+                              shearwarp_plan=plan)
+    assert want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5)
 
 
 # The march branches' gradients against jax.grad of the JAX package's:

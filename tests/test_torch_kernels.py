@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K11) against their plain PyTorch versions on
 the card, on the same inputs.
 
 This file imports no JAX: the machine with the card has none. There, run
@@ -27,8 +27,10 @@ from tbraymarcherplugin_tpu_torch.ops import shearwarp as PSW
 from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad as PK5
 from tbraymarcherplugin_tpu_torch.ops import synthetic
 from tbraymarcherplugin_tpu_torch.ops import tf_alpha as PK3
+from tbraymarcherplugin_tpu_torch.ops import tf_rgba as PK10
 from tbraymarcherplugin_tpu_torch.ops import transfer as T
 from tbraymarcherplugin_tpu_torch.ops import warp as PW
+from tbraymarcherplugin_tpu_torch.tools import micro as PK11
 
 WINDOWS = ([0.45, 0.7, 1.0, 1.0], [0.5, 1.2, 0.0, 0.0], [0.8, 0.3, 1.0, 0.0])
 CLIP = ([0.5, 0.45, 0.5], [0.3, 0.8, 0.52])
@@ -327,7 +329,9 @@ def test_render_lit_scene_grads_kernels_match_plain(cuda):
             torch.tensor(0.8, device=cuda, requires_grad=True),
             torch.tensor([1.0], device=cuda, requires_grad=True))
         img = PP.render_lit_scene(params, rays, clip.center, clip.direction,
-                                  plans, dims, shearwarp_plan=plan,
+                                  plans, dims, march_impl="shearwarp",
+                                  shearwarp_plan=plan,
+                                  shearwarp_tf_unit="fused",
                                   shearwarp_dtype=torch.float32)
         (img ** 2).mean().backward()
         return [p.grad for p in (params.volume, params.tf_table,
@@ -345,3 +349,112 @@ def test_render_lit_scene_grads_kernels_match_plain(cuda):
                           got, want):
         assert float(b.abs().max()) > 0, name
         _close(a, b, 1e-3, 1e-4, name)
+
+
+def _rgba_inputs(gen, cuda, shape=(8, 96, 160)):
+    """Values past both cutoffs, a third of them on the bone TF's alpha
+    plateau at 0 (the clip's ties), and the dense composite's (n1, n2)
+    step field."""
+    vals = gen.random(shape, dtype=np.float32) * 1.4 - 0.2
+    vals.reshape(-1)[::3] = np.float32(0.24)
+    step = 0.5 + gen.random(shape[1:], dtype=np.float32)
+    return (torch.from_numpy(vals).to(cuda),
+            torch.from_numpy(step).to(cuda))
+
+
+@pytest.mark.parametrize("win", WINDOWS)
+def test_tf_rgba_kernel_matches_plain(cuda, gen, win):
+    vals, step = _rgba_inputs(gen, cuda)
+    tf = T.tf_ct_bone(device=cuda)
+    w = torch.tensor(win, device=cuda)
+    for s in (step, step.expand(vals.shape).contiguous(), 0.9):
+        before = PK10.windowed_tf_rgba.launches
+        got = PK10.windowed_tf_rgba(vals, tf, w, s)
+        assert PK10.windowed_tf_rgba.launches == before + 1
+        want = PK10.windowed_tf_rgba_plain(vals, tf, w, s)
+        torch.cuda.synchronize()
+        assert got.shape == vals.shape + (4,)
+        # the RGB lerps round as the plain version; alpha meets expf/logf
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("win", WINDOWS)
+def test_tf_rgba_bwd_kernel_matches_plain(cuda, gen, win):
+    vals, step = _rgba_inputs(gen, cuda)
+    g = torch.from_numpy(gen.standard_normal(tuple(vals.shape) + (4,))
+                         .astype(np.float32)).to(cuda)
+    tf = T.tf_ct_bone(device=cuda)
+    w = torch.tensor(win, device=cuda)
+    for need_step in (True, False):
+        before = PK10.windowed_tf_rgba_bwd.launches
+        got = PK10.windowed_tf_rgba_bwd(vals, tf, w, step, g, need_step)
+        assert PK10.windowed_tf_rgba_bwd.launches == before + 1
+        again = PK10.windowed_tf_rgba_bwd(vals, tf, w, step, g, need_step)
+        want = PK10.windowed_tf_rgba_bwd_plain(vals, tf, w, step, g,
+                                               need_step)
+        torch.cuda.synchronize()
+        assert _same_bits(got[:3], again[:3])  # fixed-order reductions
+        # expf/logf ulps per element; sums in another order
+        _close(got[0], want[0], 1e-5, 1e-6, "dval")
+        _close(got[1], want[1], 1e-4, 1e-5, "dtf")
+        _close(got[2], want[2], 1e-4, 1e-5, "dwin")
+        if need_step:
+            assert torch.equal(got[3], again[3])
+            _close(got[3], want[3], 1e-5, 1e-6, "dstep")
+        else:
+            assert got[3] is None
+
+
+def test_dense_composite_kernels_match_plain(cuda):
+    """The dense fwd+bwd at 32^3 through K10a/K10b (the "pallas" TF unit)
+    against the plain versions on the card."""
+    dims = (32, 32, 32)
+    cam = PS.Camera.look_at((0.1, -2.3, 0.4), 0.0, fov_degrees=40.0)
+    tr = PS.VolumeTransform.create()
+    plan = PSW.plan_shearwarp(cam, tr, dims, dims, 160, 90, max_planes=24)
+    plans = (PP.LightPlan.create((0.3, 0.1, -0.95), dims),)
+    clip = PS.ClipPlane(*CLIP)
+    rays = PR.setup_rays(cam, tr, 160, 90)
+    vol = torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda)
+
+    def run():
+        params = PP.RenderParams(
+            vol.clone().requires_grad_(),
+            T.tf_ct_bone(device=cuda).requires_grad_(),
+            torch.tensor(0.55, device=cuda, requires_grad=True),
+            torch.tensor(0.8, device=cuda, requires_grad=True),
+            torch.tensor([1.0], device=cuda, requires_grad=True))
+        img = PP.render_lit_scene(params, rays, clip.center, clip.direction,
+                                  plans, dims, march_impl="shearwarp",
+                                  shearwarp_plan=plan,
+                                  shearwarp_tf_unit="pallas")
+        (img ** 2).mean().backward()
+        return [img.detach()] + [p.grad for p in (
+            params.volume, params.tf_table, params.window_center,
+            params.window_width, params.light_intensities)]
+
+    fwd, bwd = PK10.windowed_tf_rgba, PK10.windowed_tf_rgba_bwd
+    before = (fwd.launches, bwd.launches)
+    got = run()
+    # 3 blocks of 8 planes: forward, the checkpoint's recompute, backward
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (6, 3)
+    with _plain((PK10, "windowed_tf_rgba", PK10.windowed_tf_rgba_plain),
+                (PK10, "windowed_tf_rgba_bwd",
+                 PK10.windowed_tf_rgba_bwd_plain)):
+        want = run()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("image", "volume", "tf", "center", "width",
+                           "intensity"), got, want):
+        assert float(b.abs().max()) > 0, name
+        _close(a, b, 1e-3, 1e-4, name)
+
+
+def test_gather_probe_kernel_matches_plain(cuda):
+    tab, idx = PK11.probe_inputs(cuda, seed=5)
+    before = PK11.gather_probe.launches
+    got = PK11.gather_probe(tab, idx)
+    assert PK11.gather_probe.launches == before + 1
+    want = PK11.gather_probe_plain(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -1,6 +1,7 @@
 """The port imports, renders and differentiates a frame with JAX
-unavailable: a shear-warp frame, a march frame from inside the volume, and
-fwd+bwd through the shear-warp and the blocked-march branches."""
+unavailable: a shear-warp frame, a march frame from inside the volume,
+fwd+bwd through the fused and the dense shear-warp branches and the
+blocked-march branch, and two `fit` steps with a checkpoint."""
 
 import os
 import subprocess
@@ -26,7 +27,8 @@ img = r.render(Camera.look_at([0.1, -0.3, 0.05], 0.0), 24, 16)
 assert r._sw_plan is None and bool(img.isfinite().all())
 assert float(img[..., 3].max()) > 0.0
 
-# the differentiable frame: fwd+bwd through K1-K8's plain versions
+# the differentiable frames: fwd+bwd through K1-K8's, then K10's, plain
+# versions
 import torch
 from tbraymarcherplugin_tpu_torch.models import pipeline as PP
 from tbraymarcherplugin_tpu_torch.ops import rays, shearwarp
@@ -44,6 +46,7 @@ clip = ClipPlane.disabled()
 img = PP.render_lit_scene(
     params, rays.setup_rays(cam, tr, 24, 16), clip.center, clip.direction,
     (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims,
+    march_impl="shearwarp", shearwarp_tf_unit="fused",
     shearwarp_plan=shearwarp.plan_shearwarp(cam, tr, dims, dims, 24, 16,
                                             max_planes=12))
 (img ** 2).mean().backward()
@@ -54,11 +57,36 @@ for leaf in leaves:
     leaf.grad = None
 img = PP.render_lit_scene(
     params, rays.setup_rays(cam, tr, 24, 16), clip.center, clip.direction,
+    (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims,
+    march_impl="shearwarp", shearwarp_tf_unit="pallas",
+    shearwarp_plan=shearwarp.plan_shearwarp(cam, tr, dims, dims, 24, 16,
+                                            max_planes=12))
+(img ** 2).mean().backward()
+for leaf in leaves:
+    assert bool(leaf.grad.isfinite().all()) and bool((leaf.grad != 0).any())
+    leaf.grad = None
+img = PP.render_lit_scene(
+    params, rays.setup_rays(cam, tr, 24, 16), clip.center, clip.direction,
     (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims, step_count=12,
     march_impl="blocked")
 (img ** 2).mean().backward()
 for leaf in leaves:
     assert bool(leaf.grad.isfinite().all()) and bool((leaf.grad != 0).any())
+
+# two fit steps with a checkpoint after each
+import tempfile
+from tbraymarcherplugin_tpu_torch.models import fitting
+from tbraymarcherplugin_tpu_torch.utils.checkpoint import CheckpointManager
+
+with tempfile.TemporaryDirectory() as ckpt:
+    with torch.no_grad():
+        target = img.detach() * 0.5
+    _, losses = fitting.fit(
+        params, rays.setup_rays(cam, tr, 24, 16), target, clip.center,
+        clip.direction, (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims,
+        fitting.FitConfig(steps=2, step_count=12), checkpoint_dir=ckpt)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert CheckpointManager(ckpt).all_steps() == [0, 1]
 assert not any(m == "jax" or m.startswith(("jax.", "tbraymarcherplugin_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
