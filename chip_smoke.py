@@ -53,15 +53,28 @@ Phases, one line each:
      on the card equals the fitted leaves;
   9. the gather probe (`tools/micro.py`, K11): its tool's run, then the
      kernel against `tab[idx]` (exactly), with the G gathers/s of the
-     kernel, the plain version and `torch.index_select`.
+     kernel, the plain version and `torch.index_select`;
+ 10. modes: the bench scene through `Renderer` in intensity mode (four
+     orbit frames), in octree mode (four, mip 0), and one lit frame behind
+     an opaque plane (`scene_depth_from_plane`): K1's intensity, unlit and
+     λ-ceiling variants' launch counts must rise; frames are checked for
+     finiteness, coverage and distinct checksums, against the all-plain
+     path on the card, and the depth frame for less alpha than the same
+     frame without depth; each variant against its plain version on the
+     path's own inputs, timed, with its bound from the work the plain
+     version counts (`composite_ops`); one march-fallback frame per mode
+     (camera inside the volume), timed; a 24^3 frame per mode on the card
+     against the CPU.
 Then a JSON line of the kernels (each with its bound, from the inputs it
-was timed on), the card line, and the result line.
+was timed on; K1's variants as rows of their own), the card line, and the
+result line.
 
 There is no CPU path: without a CUDA device the script exits with an error.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -137,14 +150,14 @@ FIT_START_CENTER = 0.6
 # once) over the H100 SXM's 3.35 TB/s, and its float32 operations over the
 # 67 TFLOP/s outside the tensor cores (NVIDIA's H100 SXM data sheet).
 # Operations per element of each kernel's work, counted from its
-# source (a transcendental counts as one operation): per sample of the
-# composite (occupied planes x pixels), per output element of the row
-# lerp, per element of its first operand otherwise. The march counts
-# what its rays do on the inputs it was timed on (`march_ops`).
+# source (a transcendental counts as one operation): per output element of
+# the row lerp, per element of its first operand otherwise. The march and
+# the composite count what their threads do on the inputs they were timed
+# on (`march_ops`, `composite_ops`).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_ELEMENT = {
-    "composite": 60, "row_lerp": 6, "tf_alpha": 26, "light_scan": 20,
+    "row_lerp": 6, "tf_alpha": 26, "light_scan": 20,
     "composite_bwd": 120, "row_lerp_bwd": 8, "light_scan_bwd": 40,
     "tf_alpha_bwd": 45, "tf_rgba": 35, "tf_rgba_bwd": 75, "gather_probe": 1,
 }
@@ -160,9 +173,29 @@ OPS_PER_ELEMENT = {
 # (6 + 42), the RGB lerps and light products (12) and the composite with
 # the termination test (13): 140 more, 155 in all.
 MARCH_STEP_OPS, MARCH_SAMPLE_OPS = 15, 140
+# K1's float operations (csrc/composite.cu, counted as K9's). Every
+# (pixel, plane) a thread visits (occupied chunks, up to its termination):
+# the coordinates (2 mul, 2 add), with jitter the next plane's (4) and
+# three lerps (9), and the mask (4 compares, mul, add, compare): 24, one
+# more with a λ ceiling. A sample that passes the mask: the value's lerp
+# (3), the window and the cut or, in intensity mode, the clamp (5): 8. A
+# sample shaded through the TF (lit and unlit, not cut): the taps (9), four
+# lerps (12), the alpha correction (8), the weight (2), the RGB products
+# and sums (9), alpha and the termination test (3): 43, and the light's
+# lerp (3) in lit mode. The plain version counts the three kinds of work
+# (`composite_plain(..., stats=)`).
+COMPOSITE_STEP_OPS, COMPOSITE_SAMPLE_OPS = 24, 8
+COMPOSITE_SHADE_OPS = {"lit": 46, "unlit": 43, "intensity": 0}
+# Phase 10: the opaque plane behind which the lit depth frame's samples are
+# masked (world space, facing the camera, 0.2 in front of the volume's
+# center: it hides about half of the frame's alpha at 64^3 on the CPU).
+DEPTH_PLANE = ((0.0, -0.2, 0.0), (0.1, -0.95, 0.3))
 
 REPLACES = {
     "composite": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
+    "composite_intensity": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
+    "composite_unlit": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
+    "composite_depth": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
     "row_lerp": "tbraymarcherplugin_tpu/ops/pallas_warp.py:34",
     "tf_alpha": "tbraymarcherplugin_tpu/ops/pallas_tf.py:29",
     "light_scan": "tbraymarcherplugin_tpu/ops/pallas_lighting.py:57",
@@ -177,6 +210,9 @@ REPLACES = {
 }
 SOURCES = {
     "composite": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
+    "composite_intensity": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
+    "composite_unlit": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
+    "composite_depth": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
     "row_lerp": "tbraymarcherplugin_tpu_torch/csrc/row_lerp.cu",
     "tf_alpha": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha.cu",
     "light_scan": "tbraymarcherplugin_tpu_torch/csrc/light_scan.cu",
@@ -229,12 +265,6 @@ def check(ok, msg):
 
 def _elements(torch, name, args, kw, out):
     """The units of work of one call that OPS_PER_ELEMENT counts."""
-    if name == "composite":  # the samples of the occupied chunks
-        from tbraymarcherplugin_tpu_torch.ops.composite import KB
-        occ = kw["occ"].tolist()
-        planes = sum(min(KB, kw["k_real"] - c * KB)
-                     for c, o in enumerate(occ) if o)
-        return planes * kw["e1"].numel()
     if name == "row_lerp":
         return out.numel()
     if name == "gather_probe":
@@ -249,30 +279,50 @@ def march_ops(stats):
             + stats["samples"] * MARCH_SAMPLE_OPS)
 
 
+def _bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(torch, name, calls, ops=None):
     """``bound_ms`` and ``bound_by`` of the calls ``[(args, kw, out)]`` of
     kernel ``name`` (see HBM_BYTES_PER_S); ``ops`` counts their operations
-    where OPS_PER_ELEMENT does not. The composite reads only the planes of
-    its occupied chunks."""
+    where OPS_PER_ELEMENT does not."""
     nbytes = 0
     count = ops is None
     ops = ops or 0
     for args, kw, out in calls:
         ins = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
         outs = [t for t in as_tuple(out) if isinstance(t, torch.Tensor)]
-        n = _elements(torch, name, args, kw, out)
-        skip = 0
         if count:
-            ops += n * OPS_PER_ELEMENT[name]
-        if name == "composite":  # unoccupied planes are never read
-            planes = kw["W"].shape[0] * kw["e1"].numel()
-            skip = (planes - n) * (kw["W"].element_size()
-                                   + kw["L"].element_size())
-        nbytes += sum(t.numel() * t.element_size() for t in ins + outs) - skip
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            ops += _elements(torch, name, args, kw, out) * OPS_PER_ELEMENT[name]
+        nbytes += sum(t.numel() * t.element_size() for t in ins + outs)
+    return _bound(nbytes, ops)
+
+
+def composite_ops(kw, stats):
+    """K1's float operations on the call ``kw`` whose plain run filled
+    ``stats`` (see COMPOSITE_STEP_OPS)."""
+    step = COMPOSITE_STEP_OPS + (kw.get("depth_lam") is not None)
+    return (stats["steps"] * step + stats["samples"] * COMPOSITE_SAMPLE_OPS
+            + stats["shaded"] * COMPOSITE_SHADE_OPS[kw.get("mode", "lit")])
+
+
+def composite_bound(torch, kw, out, stats):
+    """``bound_ms``/``bound_by`` of one K1 call: each plane value a thread
+    reads (the samples that pass the mask; the light's only where they are
+    shaded, lit mode), each per-pixel field and small operand once, the
+    output once; operations from ``composite_ops``."""
+    planes = ("W", "L")
+    nbytes = stats["samples"] * kw["W"].element_size()
+    if kw.get("mode", "lit") == "lit":
+        nbytes += stats["shaded"] * kw["L"].element_size()
+    nbytes += sum(t.numel() * t.element_size() for k, t in kw.items()
+                  if isinstance(t, torch.Tensor) and k not in planes)
+    nbytes += out.numel() * out.element_size() + kw["pa"].nbytes
+    return _bound(nbytes, composite_ops(kw, stats))
 
 
 def kernel_table():
@@ -323,7 +373,9 @@ def capture_calls(calls: dict, names):
                 calls.setdefault(_name, []).append((args, kw))
                 return _real(*args, **kw)
 
-            spy.launches = 0  # the wrapper counts on the name it is bound to
+            # the wrapper counts on the name it is bound to
+            spy.launches = 0
+            spy.variant_launches = collections.Counter()
             stack.enter_context(mock.patch.object(mod, fn, spy))
         yield
 
@@ -849,6 +901,171 @@ def gather_phase(torch, card, results):
           f"{results['gather_probe']['bound_ms']:.4f} ms | {card}", flush=True)
 
 
+def modes_phase(torch, volume, tf, windowing, light, cam, transform, card,
+                results):
+    """Phase 10 (see the module docstring); adds K1's intensity, unlit and
+    λ-ceiling variants to ``results``."""
+    from tbraymarcherplugin_tpu_torch.ops import composite as K1
+    from tbraymarcherplugin_tpu_torch.ops import synthetic
+    from tbraymarcherplugin_tpu_torch.ops import transfer as T
+    from tbraymarcherplugin_tpu_torch.ops import warp as K2
+    from tbraymarcherplugin_tpu_torch.ops.rays import scene_depth_from_plane
+    from tbraymarcherplugin_tpu_torch.renderer import Renderer, RendererConfig
+    from tbraymarcherplugin_tpu_torch.scene import Camera, orbit_camera
+
+    dev = volume.device
+
+    def make_renderer(mode, vol=volume, table=tf, steps=STEPS):
+        r = Renderer(vol, tf_table=table, windowing=windowing,
+                     transform=transform,
+                     config=RendererConfig(step_count=steps, jitter=True,
+                                           render_mode=mode),
+                     device=vol.device)
+        r.add_light("sun", light)
+        return r
+
+    def depth_map(c, width, height, d):
+        return scene_depth_from_plane(c, transform, width, height,
+                                      *DEPTH_PLANE, device=d)
+
+    radius = math.hypot(CAM_POS[0], CAM_POS[1])
+    angle0 = math.atan2(CAM_POS[1], CAM_POS[0])
+    cams = [orbit_camera(angle0 + 0.2 * i, radius, CAM_POS[2],
+                         fov_degrees=FOV) for i in range(4)]
+    depth = depth_map(cams[0], WIDTH, HEIGHT, dev)
+    rends = {mode: make_renderer(mode) for mode in ("intensity", "octree")}
+    rends["lit"] = make_renderer("lit")
+    rends["lit"].ensure_lighting()  # the illumination is not this phase's
+    variants = ("composite_intensity", "composite_unlit", "composite_depth")
+    K1.composite.launches = 0
+    K1.composite.variant_launches.clear()
+    K2.row_lerp.launches = 0
+    frames, frame_ms = {}, {}
+    for mode in ("intensity", "octree"):
+        for c in cams:
+            img, ms = host_ms(torch, lambda c=c: rends[mode].render(
+                c, WIDTH, HEIGHT))
+            frames.setdefault(mode, []).append(img)
+            frame_ms.setdefault(mode, []).append(ms)
+    img, ms = host_ms(torch, lambda: rends["lit"].render(
+        cams[0], WIDTH, HEIGHT, scene_depth=depth))
+    frames["lit, depth"], frame_ms["lit, depth"] = [img], [ms]
+    launches = dict(K1.composite.variant_launches)
+    launches["row_lerp"] = K2.row_lerp.launches
+    times = " | ".join(f"{m}: {', '.join(f'{x:.2f}' for x in v)}"
+                       for m, v in frame_ms.items())
+    print(f"[modes] launches {launches} | ms per frame (host clock) {times} "
+          f"| {card}", flush=True)
+    for name in variants + ("row_lerp",):
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was not launched by the modes path")
+    check(launches.get("composite", 0) == 0, "the modes path launched K1 "
+          "in lit mode without its depth ceiling")
+    for name in variants:
+        results[name] = dict(launches=launches[name])
+    sums, covers = [], {}
+    for mode, fs in frames.items():
+        for f in fs:
+            check(tuple(f.shape) == (HEIGHT, WIDTH, 4),
+                  f"{mode} frame shape {f.shape}")
+            check(bool(torch.isfinite(f).all()), f"non-finite {mode} frame")
+            cover = float((f[..., 3] > 0.01).float().mean())
+            check(cover > 0.05, f"{mode}: alpha coverage {cover:.3f}")
+            covers.setdefault(mode, []).append(cover)
+            sums.append(float(f.double().sum()))
+    check(len(set(sums)) == len(sums), f"frame checksums repeat: {sums}")
+    check(rends["octree"].octree is not None
+          and rends["intensity"].octree is None, "octree pyramid use")
+
+    # the depth frame against the same frame (jitter of frame 0) without
+    # the plane
+    no_depth = make_renderer("lit").render(cams[0], WIDTH, HEIGHT)
+    a_depth = float(frames["lit, depth"][0][..., 3].sum())
+    a_full = float(no_depth[..., 3].sum())
+    print(f"[modes] alpha sum with the depth plane {a_depth:.1f}, without "
+          f"{a_full:.1f} | coverage {covers} | checksums "
+          f"{', '.join(f'{x:.1f}' for x in sums)}", flush=True)
+    check(a_depth < 0.95 * a_full, "the depth plane removed no alpha")
+    del frames, no_depth
+
+    # each variant against its plain version on the path's own inputs
+    for mode, name, kw in (("intensity", "composite_intensity", {}),
+                           ("octree", "composite_unlit", {}),
+                           ("lit", "composite_depth",
+                            dict(scene_depth=depth))):
+        calls = {}
+        with capture_calls(calls, ["composite"]):
+            make_renderer(mode).render(cams[0], WIDTH, HEIGHT, **kw)
+        (args, ckw), = calls["composite"]
+        check(K1.variant(ckw.get("mode", "lit"), ckw.get("depth_lam"))
+              == name, f"{name}: the path called another variant")
+        got = K1.composite(*args, **ckw)
+        stats = {}  # the work the kernel's threads do on these inputs
+        want = K1.composite_plain(*args, **ckw, stats=stats)
+        err = float((got - want).abs().max())
+        check(math.isfinite(err), f"{name}: non-finite output")
+        ms = cuda_ms(torch, lambda: K1.composite(*args, **ckw), 10)
+        plain_ms = cuda_ms(torch, lambda: K1.composite_plain(*args, **ckw),
+                           1)
+        bnd = composite_bound(torch, ckw, got, stats)
+        results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, **bnd)
+        print(f"[kernel] {name}: max_abs_err {err:.3e} (limit "
+              f"{LIMITS['composite']:.0e}) | kernel {ms:.3f} ms | plain "
+              f"{plain_ms:.3f} ms | bound {bnd['bound_ms']:.3f} ms "
+              f"({bnd['bound_by']}; {stats} over {got[0].numel()} pixels, "
+              f"K={ckw['k_real']}) | {card}", flush=True)
+        check(err <= LIMITS["composite"],
+              f"{name} disagrees with its plain version")
+        del calls, args, ckw, got, want
+
+    # the frames against the all-plain path on the card (frame index 0)
+    errs = {}
+    for mode, kw in (("intensity", {}), ("octree", {}),
+                     ("lit", dict(scene_depth=depth))):
+        with all_plain():
+            ref = make_renderer(mode).render(cams[0], WIDTH, HEIGHT, **kw)
+        got = make_renderer(mode).render(cams[0], WIDTH, HEIGHT, **kw)
+        errs[mode] = float((got - ref).abs().max())
+    print(f"[modes] frames vs all-plain path on the card: max_abs_err "
+          f"{errs} (limit {FRAME_VS_PLAIN_LIMIT:.0e})", flush=True)
+    check(max(errs.values()) <= FRAME_VS_PLAIN_LIMIT,
+          "kernel frames != plain frames")
+
+    # the camera inside the volume: no plan, each mode's march, timed
+    fly = Camera.look_at(FLY_POS, (0.0, 0.0, 0.0), fov_degrees=FLY_FOV)
+    K1.composite.launches = 0
+    march = {}
+    for mode in ("intensity", "octree"):
+        r = make_renderer(mode)
+        img, ms = host_ms(torch, lambda r=r: r.render(fly, WIDTH, HEIGHT))
+        check(r._sw_plan is None and bool(torch.isfinite(img).all()),
+              f"{mode}: the fly-through frame did not march")
+        march[mode] = (ms, float((img[..., 3] > 0.01).float().mean()))
+    check(K1.composite.launches == 0, "a march frame launched K1")
+    print(f"[modes] march fallback (camera inside), ms (host clock) and "
+          f"coverage: {march} | {card}", flush=True)
+
+    # 24^3, the card (bf16 planes) against the CPU (float32)
+    small = synthetic.ct_like_phantom((24, 24, 24), seed=0)
+    diffs = {}
+    for mode in ("intensity", "octree", "lit"):
+        imgs = []
+        for d in (dev, torch.device("cpu")):
+            r = make_renderer(mode, torch.from_numpy(small).to(d),
+                              T.tf_ct_bone(device=d), 20)
+            kw = {} if mode != "lit" else dict(
+                scene_depth=depth_map(cam, 64, 48, d))
+            imgs.append(r.render(cam, 64, 48, **kw).cpu())
+        diff = (imgs[0] - imgs[1]).abs()
+        diffs[mode] = (float(diff.mean()), float(diff.max()))
+    print(f"[small] modes, card vs CPU at 24^3, 64x48, (mean, max): {diffs} "
+          f"(limits {SMALL_MEAN_LIMIT:.0e}, {SMALL_MAX_LIMIT:.0e})",
+          flush=True)
+    check(all(m < SMALL_MEAN_LIMIT and x < SMALL_MAX_LIMIT
+              for m, x in diffs.values()), "mode frames: card != CPU on 24^3")
+
+
 def main() -> int:
     import torch
 
@@ -905,11 +1122,12 @@ def main() -> int:
     cam = Camera.look_at(CAM_POS, 0.0, fov_degrees=FOV)
     results = {}
 
-    def record(name, got, want, ms, plain_ms, calls):
+    def record(name, got, want, ms, plain_ms, calls=None, bnd=None):
         err = float((got.float() - want.float()).abs().max())
         check(math.isfinite(err), f"{name}: non-finite output")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, **bound(torch, name, calls))
+                             library_ms=None,
+                             **(bnd or bound(torch, name, calls)))
         print(f"[kernel] {name}: max_abs_err {err:.3e} (limit "
               f"{LIMITS[name]:.0e}) | kernel {ms:.3f} ms | plain "
               f"{plain_ms:.3f} ms | bound {results[name]['bound_ms']:.3f} ms "
@@ -963,13 +1181,15 @@ def main() -> int:
                                clip.center, clip.direction, jitter=jit)
     check(ops["W"].dtype == torch.bfloat16, "planes are not bf16 on the card")
     inter = K1.composite(**ops)
-    want = K1.composite_plain(**ops)
+    stats = {}  # the work the kernel's threads do on these inputs
+    want = K1.composite_plain(**ops, stats=stats)
     record("composite", inter, want,
            cuda_ms(torch, lambda: K1.composite(**ops), 10),
            cuda_ms(torch, lambda: K1.composite_plain(**ops), 2),
-           [((), ops, inter)])
+           bnd=composite_bound(torch, ops, inter, stats))
     print(f"[kernel] composite plan: n1={plan.n1} n2={plan.n2} K={plan.k} "
-          f"axis={plan.axis} swap_warp={plan.swap_warp}", flush=True)
+          f"axis={plan.axis} swap_warp={plan.swap_warp} | work {stats}",
+          flush=True)
 
     # K2: both warp passes of the frame.
     p1r, p2r, pdr, Wd, Hd = SW.warp_rows(plan, WIDTH, HEIGHT)
@@ -1088,9 +1308,16 @@ def main() -> int:
     gather_phase(torch, card, results)
     torch.cuda.synchronize()
 
+    # --- 10. the intensity and octree modes, the depth ceiling ---------------
+    modes_phase(torch, volume, tf, windowing, light, cam, transform, card,
+                results)
+    torch.cuda.synchronize()
+
+    names = [n for n, _, _ in kernel_table()]
+    names[1:1] = ["composite_intensity", "composite_unlit", "composite_depth"]
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
-             **results[n]) for n, _, _ in kernel_table()
+             **results[n]) for n in names
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

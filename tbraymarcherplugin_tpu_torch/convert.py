@@ -14,7 +14,17 @@ import numpy as np
 import torch
 
 from .scene import Camera, ClipPlane, DirLight, VolumeTransform
+from .utils.device import resolve_device
 from .utils.volume_info import WindowingParameters
+
+
+def _to_device(x, device) -> torch.Tensor:
+    """A float32 copy of array or tensor ``x`` on
+    ``resolve_device(device, like=x)``."""
+    dev = resolve_device(device, like=x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev, torch.float32, copy=True)
+    return torch.from_numpy(np.array(x, np.float32)).to(dev)
 
 
 def to_port_state(arrays: Mapping[str, np.ndarray], device=None) -> dict:
@@ -32,12 +42,14 @@ def to_port_state(arrays: Mapping[str, np.ndarray], device=None) -> dict:
       ``transform_scale`` (3,)
 
     Returns a dict: ``volume``, ``tf_table`` and ``light_volume`` tensors on
-    ``device``; ``windowing`` (:class:`WindowingParameters`); ``lights``
-    (list of :class:`DirLight`); ``camera``, ``clip_plane``, ``transform``.
+    ``device`` (None: a tensor keeps its device, anything else goes to the
+    card; see `utils.device.resolve_device`); ``windowing``
+    (:class:`WindowingParameters`); ``lights`` (list of :class:`DirLight`);
+    ``camera``, ``clip_plane``, ``transform``.
     """
 
     def tensor(name):
-        return torch.from_numpy(np.array(arrays[name], np.float32)).to(device)
+        return _to_device(arrays[name], device)
 
     win = np.asarray(arrays["windowing"], np.float32)
     directions = np.asarray(arrays["light_directions"], np.float32)
@@ -74,17 +86,19 @@ def to_port_render_params(params: Mapping[str, np.ndarray], light_directions,
     local-space directions the JAX ``LightPlan``s were made from. Returns
     (:class:`~.models.pipeline.RenderParams` on ``device``, whose leaves
     take gradients when ``requires_grad``, and the tuple of
-    :class:`~.models.pipeline.LightPlan`).
+    :class:`~.models.pipeline.LightPlan`). With no ``device``, a tensor
+    keeps its device and anything else goes to the card.
     """
     from .models.pipeline import LightPlan, RenderParams
 
     def leaf(name):
-        t = torch.from_numpy(np.array(params[name], np.float32)).to(device)
-        return t.requires_grad_(requires_grad)
+        return _to_device(params[name], device).requires_grad_(requires_grad)
 
     fields = ("volume", "tf_table", "window_center", "window_width",
               "light_intensities")
     plans = tuple(LightPlan.create(d, light_dims) for d in light_directions)
-    if len(plans) != np.size(params["light_intensities"]):
+    intensities = params["light_intensities"]
+    if len(plans) != (intensities.numel() if isinstance(
+            intensities, torch.Tensor) else np.size(intensities)):
         raise ValueError("one light direction per intensity")
     return RenderParams(*(leaf(f) for f in fields)), plans

@@ -125,7 +125,7 @@ def fit(init_params: RenderParams, rays, target: torch.Tensor, clip_center,
         if resume and mgr.latest_step() is not None:
             # restored on the CPU: the optimizer moves its moments to the
             # leaves' device and keeps its step counts on the CPU
-            (saved, opt_state), meta = mgr.restore(None)
+            (saved, opt_state), meta = mgr.restore(None, device="cpu")
             with torch.no_grad():
                 for f in FIELDS:
                     getattr(params, f).copy_(getattr(saved, f))

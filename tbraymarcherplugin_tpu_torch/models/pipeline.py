@@ -40,7 +40,6 @@ from ..ops.composite import shearwarp_intermediate_fused
 from ..ops.compositing import EARLY_TERMINATION_ALPHA
 from ..ops.shearwarp_grad import shearwarp_intermediate_fused_diff
 from ..ops.warp import warp_to_screen_fused
-from ..renderer import _NOT_PORTED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +160,10 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
         raise ValueError(f"unknown march_impl {march_impl!r}; choose "
                          f"{MARCH_IMPLS}")
     if grad_allreduce_axis is not None:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="grad_allreduce_axis (the sharded gradient all-reduce)"))
+        raise NotImplementedError(
+            "not ported yet: grad_allreduce_axis (the sharded gradient "
+            "all-reduce). It comes with a later slice of the port "
+            "(ROADMAP.md, 'Modules to port').")
     if march_impl != "shearwarp":
         win = _windowing_vec4(params, low_cutoff, high_cutoff)
         lv = compute_illumination(params, light_plans, clip_center,

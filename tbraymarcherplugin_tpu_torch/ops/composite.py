@@ -1,16 +1,20 @@
-"""K1: the fused shear-warp composite (lit), with its host glue.
+"""K1: the fused shear-warp composite, with its host glue.
 
 Counterpart of `tbraymarcherplugin_tpu/ops/shearwarp_pallas.py::
-shearwarp_intermediate_fused` in lit mode. The glue pre-shears the volume
-and light planes with batched banded matmuls (`shearwarp._resample_block`,
-as the JAX package leaves them outside its kernel), computes the
-per-pixel step and clip fields, the per-plane coefficients and the exact
-per-chunk occupancy flags; :func:`composite` then launches
-`csrc/composite.cu` for CUDA tensors or runs :func:`composite_plain` for
-CPU tensors.
+shearwarp_intermediate_fused` in its three modes: "lit" (the frame),
+"unlit" (the octree mode, with ``sample_nearest``) and "intensity" (first
+hit), with the optional per-pixel λ jitter and scene-depth ceiling
+``depth_lam``. The glue pre-shears the volume and, in lit mode, the light
+planes with batched banded matmuls (`shearwarp._resample_block`, as the JAX
+package leaves them outside its kernel), computes the per-pixel step and
+clip fields, the per-plane coefficients and the exact per-chunk occupancy
+flags; :func:`composite` then launches `csrc/composite.cu` for CUDA
+tensors or runs :func:`composite_plain` for CPU tensors.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -23,10 +27,19 @@ from .shearwarp import (ShearWarpPlan, _pad_to, _resample_block, _t,
 from .transfer import windowed_tf_range_occupied
 
 KB = 16  # planes per occupancy chunk
+MODES = ("lit", "unlit", "intensity")  # csrc/composite.cu's MODE_* order
 
 
 def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def variant(mode: str, depth_lam=None) -> str:
+    """The name a launch of K1 counts under in
+    ``composite.variant_launches``: "composite" for lit mode,
+    "composite_<mode>" otherwise, "_depth" appended with a λ ceiling."""
+    name = "composite" if mode == "lit" else f"composite_{mode}"
+    return name if depth_lam is None else name + "_depth"
 
 
 def _plane_param_array(plan: ShearWarpPlan, Kp: int,
@@ -75,12 +88,23 @@ def _clip_step_fields(plan: ShearWarpPlan, clip_center, clip_direction,
 
 def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
                     e0: float, early_termination: float, d1: int, d2: int,
-                    k_real: int) -> torch.Tensor:
-    """Front-to-back lit composite of the (K[+1], n1, n2) planes ``W`` and
-    ``L`` -> (4, n1, n2); the kernel's arithmetic, one PyTorch operation
-    per step. ``pa`` is the (5, P) host coefficient array, ``occ`` the
-    per-chunk occupancy flags and ``win`` the (4,) window (center, width,
-    low, high), both tensors on the planes' device."""
+                    k_real: int, depth_lam=None, mode: str = "lit",
+                    stats: dict | None = None) -> torch.Tensor:
+    """Front-to-back composite of the (K[+1], n1, n2) planes ``W`` (and
+    ``L``, lit mode only) -> (4, n1, n2); the kernel's arithmetic, one
+    PyTorch operation per step. ``pa`` is the (5, P) host coefficient
+    array, ``occ`` the per-chunk occupancy flags, ``win`` the (4,) window
+    (center, width, low, high) and ``depth_lam`` an optional (n1, n2) λ
+    ceiling, tensors on the planes' device. ``mode``: see the module
+    docstring; intensity gives (g, g, g, hit).
+
+    ``stats``: if a dict, adds the work the kernel does on these inputs:
+    ``steps``, the (pixel, plane) pairs a thread visits (occupied chunks,
+    up to its termination), ``samples``, those that pass the mask (whose
+    planes it reads), and ``shaded``, those that also pass the cutoffs and
+    go through the TF (never in intensity mode)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
     dev = e1.device
     center, width, low_c, high_c = win.tolist()
     n1, n2 = e1.shape
@@ -91,6 +115,9 @@ def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
     rr, rg, rb, alpha = (torch.zeros((n1, n2), device=dev) for _ in range(4))
     term = torch.zeros((n1, n2), dtype=torch.bool, device=dev)
     zero = torch.zeros((n1, n2), device=dev)
+    if stats is not None:
+        for key in ("steps", "samples", "shaded"):
+            stats.setdefault(key, 0)
     for k in range(k_real):
         if not occ[k // KB]:
             continue
@@ -99,19 +126,28 @@ def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
         v2 = a2k + b2k * gj
         lam_px = lamk
         value = W[k].float()
-        light = L[k].float()
         if jitter is not None:
             a1n, b1n, a2n, b2n = (float(x) for x in pa[:4, k + 1])
             v1 = v1 + (a1n + b1n * gi - v1) * jitter
             v2 = v2 + (a2n + b2n * gj - v2) * jitter
             lam_px = lamk + float(pa[4, k + 1] - pa[4, k]) * jitter
             value = value + (W[k + 1].float() - value) * jitter
-            light = light + (L[k + 1].float() - light) * jitter
         m = ((v1 >= -0.5) & (v1 <= d1 - 0.5) & (v2 >= -0.5) & (v2 <= d2 - 0.5)
              & ((e0 + lam_px * e1) > 0.0) & ~term)
+        if depth_lam is not None:
+            m = m & (lam_px <= depth_lam)
         tf_pos = (value - center + width * 0.5) / width
+        if stats is not None:
+            stats["steps"] += int((~term).sum())
+            stats["samples"] += int(m.sum())
+        if mode == "intensity":  # the first sample that passes the mask
+            rr = torch.where(m, tf_pos.clamp(0.0, 1.0), rr)
+            term = term | m
+            continue
         cut = (((tf_pos < 0.0) & (low_c > 0.0))
                | ((tf_pos > 1.0) & (high_c > 0.0)))
+        if stats is not None:
+            stats["shaded"] += int((m & ~cut).sum())
         x = tf_pos * 256.0 - 0.5
         i0f = torch.floor(x)
         frac = (x - i0f)[..., None]
@@ -123,76 +159,111 @@ def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
             torch.clamp(1.0 - ca, min=1e-10)))
         a = torch.where(m & ~cut, ca, zero)
         w = (1.0 - alpha) * a
-        rr = rr + w * c[..., 0] * light
-        rg = rg + w * c[..., 1] * light
-        rb = rb + w * c[..., 2] * light
+        wr, wg, wb = w * c[..., 0], w * c[..., 1], w * c[..., 2]
+        if mode == "lit":
+            light = L[k].float()
+            if jitter is not None:
+                light = light + (L[k + 1].float() - light) * jitter
+            wr, wg, wb = wr * light, wg * light, wb * light
+        rr, rg, rb = rr + wr, rg + wg, rb + wb
         alpha_new = alpha + w
         crossed = (a > 0.0) & (alpha_new > early_termination)
         alpha = torch.where(crossed, torch.ones_like(alpha), alpha_new)
         term = term | crossed
+    if mode == "intensity":
+        return torch.stack([rr, rr, rr, term.to(torch.float32)])
     return torch.stack([rr, rg, rb, alpha])
 
 
 def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
               e0: float, early_termination: float, d1: int, d2: int,
-              k_real: int) -> torch.Tensor:
-    """Lit composite -> (4, n1, n2); see :func:`composite_plain`."""
+              k_real: int, depth_lam=None, mode: str = "lit") -> torch.Tensor:
+    """Composite -> (4, n1, n2); see :func:`composite_plain`. Counts each
+    launch in ``composite.launches`` and, under :func:`variant`'s name, in
+    ``composite.variant_launches``."""
     if W.device.type == "cpu":
         return composite_plain(W, L, tf_table, pa, occ, e1, step_world,
                                jitter, win, e0, early_termination, d1, d2,
-                               k_real)
+                               k_real, depth_lam, mode)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
     dev = W.device
     if W.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"W must be float32 or bfloat16, got {W.dtype}")
     if tuple(tf_table.shape) != (256, 4):
         raise ValueError(f"tf_table must be (256, 4), got {tf_table.shape}")
+    lit = mode == "lit"
+    if lit == (L is None):
+        raise ValueError("L is read in lit mode only: pass it there, and "
+                         "None otherwise")
     n1, n2 = e1.shape
     pa = torch.as_tensor(np.asarray(pa, np.float32), device=dev).contiguous()
     P = pa.shape[1]
     need = k_real + (1 if jitter is not None else 0)
-    if W.shape[0] < need or L.shape[0] < need or P < need:
+    if W.shape[0] < need or (lit and L.shape[0] < need) or P < need:
         raise ValueError("planes or coefficients shorter than K (+1 jitter)")
     if occ.numel() * KB < k_real:
         raise ValueError("occupancy flags do not cover every plane")
     if win.numel() != 4:
         raise ValueError(f"win must hold 4 values, got {win.numel()}")
-    tensors = dict(W=W, L=L, tf_table=tf_table, e1=e1, step_world=step_world,
+    tensors = dict(W=W, tf_table=tf_table, e1=e1, step_world=step_world,
                    occ=occ, win=win)
-    if jitter is not None:
-        tensors["jitter"] = jitter
+    for name, t in (("L", L), ("jitter", jitter), ("depth_lam", depth_lam)):
+        if t is not None:
+            tensors[name] = t
     for name, t in tensors.items():
         dtype = {"W": W.dtype, "L": W.dtype, "occ": torch.int32}.get(
             name, torch.float32)
         _kernels.check(t, name, dtype, dev)
-    if W.shape[1:] != (n1, n2) or L.shape[1:] != (n1, n2):
-        raise ValueError("W, L and the per-pixel fields differ in shape")
+    for name, t in tensors.items():
+        if name in ("W", "L") and t.shape[1:] != (n1, n2):
+            raise ValueError(f"{name} and the per-pixel fields differ in "
+                             f"shape")
+        if name in ("jitter", "depth_lam") and t.shape != (n1, n2):
+            raise ValueError(f"{name} must be ({n1}, {n2})")
     out = torch.empty((4, n1, n2), dtype=torch.float32, device=dev)
     name = "tbr_composite_bf16" if W.dtype == torch.bfloat16 \
         else "tbr_composite_f32"
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     _kernels.launch(
-        name, W.data_ptr(), L.data_ptr(), tf_table.data_ptr(), pa.data_ptr(),
-        occ.data_ptr(), e1.data_ptr(), step_world.data_ptr(),
-        jitter.data_ptr() if jitter is not None else None, win.data_ptr(),
-        out.data_ptr(), n1, n2, k_real, P, e0, early_termination, float(d1),
-        float(d2), _kernels.stream_of(W),
+        name, W.data_ptr(), ptr(L), tf_table.data_ptr(), pa.data_ptr(),
+        occ.data_ptr(), e1.data_ptr(), step_world.data_ptr(), ptr(jitter),
+        ptr(depth_lam), win.data_ptr(), out.data_ptr(), n1, n2, k_real, P,
+        MODES.index(mode), e0, early_termination, float(d1), float(d2),
+        _kernels.stream_of(W),
     )
     composite.launches += 1
+    composite.variant_launches[variant(mode, depth_lam)] += 1
     return out
 
 
 composite.launches = 0
+composite.variant_launches = collections.Counter()
 
 
 def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
                       windowing_vec4, clip_center, clip_direction,
                       early_termination: float = EARLY_TERMINATION_ALPHA,
-                      compute_dtype=None, jitter=None) -> dict:
+                      compute_dtype=None, jitter=None, depth_lam=None,
+                      mode: str = "lit",
+                      sample_nearest: bool = False) -> dict:
     """The keyword arguments of :func:`composite` for one frame.
 
     ``compute_dtype`` is the storage type of the pre-sheared planes (None:
     `shearwarp.plane_dtype`'s, bfloat16 on the card and float32 on the
     CPU). ``jitter``: optional (n1, n2) per-pixel lam phase in [0, 1).
+    ``depth_lam``: optional (n1, n2) λ ceiling
+    (`shearwarp.depth_to_lambda_max`). ``mode``: "lit", "unlit" or
+    "intensity"; the light planes are built in lit mode only
+    (``light_volume`` is not read otherwise), and in intensity mode every
+    chunk counts as occupied (a hit needs no alpha). ``sample_nearest``:
+    the pre-shear selects the nearest texel (the octree mode).
     """
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
     dev = volume.device
     compute_dtype = plane_dtype(compute_dtype, dev)
     n1, n2, K = plan.n1, plan.n2, plan.k
@@ -210,39 +281,46 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     def coeff(name):
         return _pad_to(_t(getattr(plan, name), dev), Kbuf)
 
-    vplanes = _volume_planes(volume.permute(ax), plan)
+    vplanes = _volume_planes(volume.permute(ax), plan, nearest=sample_nearest)
     W = _resample_block(_pad_to(vplanes, Kbuf), coeff("a1"), coeff("b1"),
-                        coeff("a2"), coeff("b2"), n1, n2, compute_dtype)
-    light_t = light_volume.permute(ax)
-    lm0 = _t(plan.lm0, dev)
-    l0 = light_t[lm0]
-    l1 = light_t[(lm0 + 1).clamp(max=light_t.shape[0] - 1)]
-    lmt = _t(plan.lmt, dev)[:, None, None]
-    lplanes = l0 * (1.0 - lmt) + l1 * lmt
-    L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"), coeff("lb1"),
-                        coeff("la2"), coeff("lb2"), n1, n2, compute_dtype)
+                        coeff("a2"), coeff("b2"), n1, n2, compute_dtype,
+                        nearest=sample_nearest)
+    L = None
+    if mode == "lit":
+        light_t = light_volume.permute(ax)
+        lm0 = _t(plan.lm0, dev)
+        l0 = light_t[lm0]
+        l1 = light_t[(lm0 + 1).clamp(max=light_t.shape[0] - 1)]
+        lmt = _t(plan.lmt, dev)[:, None, None]
+        lplanes = l0 * (1.0 - lmt) + l1 * lmt
+        L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"),
+                            coeff("lb1"), coeff("la2"), coeff("lb2"), n1, n2,
+                            compute_dtype)
 
-    # Chunk occupancy: can any value in a chunk's range give alpha > 0?
-    # (plan data: computed on detached values, it takes no gradient)
-    inf = torch.tensor([float("inf")], device=dev)
-    vp = vplanes.detach()
-    sl_mn = torch.cat([vp.amin((1, 2)), inf.expand(Kp - K)])
-    sl_mx = torch.cat([vp.amax((1, 2)), -inf.expand(Kp - K)])
-    mn_c = sl_mn.view(nch, KB).amin(1)
-    mx_c = sl_mx.view(nch, KB).amax(1)
-    if jitter_on:  # jittered samples of chunk c lerp into plane (c + 1) * KB
-        nxt = ((torch.arange(nch, device=dev) + 1) * KB).clamp(max=Kp - 1)
-        mn_c = torch.minimum(mn_c, sl_mn[nxt])
-        mx_c = torch.maximum(mx_c, sl_mx[nxt])
     win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=dev)
-    occ = windowed_tf_range_occupied(mn_c, mx_c, win.detach(),
-                                     tf_table.detach())
+    if mode == "intensity":
+        occ = torch.ones(nch, dtype=torch.bool, device=dev)
+    else:
+        # Chunk occupancy: can any value in a chunk's range give alpha > 0?
+        # (plan data: computed on detached values, it takes no gradient)
+        inf = torch.tensor([float("inf")], device=dev)
+        vp = vplanes.detach()
+        sl_mn = torch.cat([vp.amin((1, 2)), inf.expand(Kp - K)])
+        sl_mx = torch.cat([vp.amax((1, 2)), -inf.expand(Kp - K)])
+        mn_c = sl_mn.view(nch, KB).amin(1)
+        mx_c = sl_mx.view(nch, KB).amax(1)
+        if jitter_on:  # jittered samples of chunk c lerp into plane (c+1)*KB
+            nxt = ((torch.arange(nch, device=dev) + 1) * KB).clamp(max=Kp - 1)
+            mn_c = torch.minimum(mn_c, sl_mn[nxt])
+            mx_c = torch.maximum(mx_c, sl_mx[nxt])
+        occ = windowed_tf_range_occupied(mn_c, mx_c, win.detach(),
+                                         tf_table.detach())
 
     step_world, e0, e1 = _clip_step_fields(plan, clip_center, clip_direction,
                                            dev)
     D1 = volume.shape[plan.axes12[0]]
     D2 = volume.shape[plan.axes12[1]]
-    return dict(
+    ops = dict(
         W=W, L=L, tf_table=tf_table.contiguous(),
         pa=_plane_param_array(plan, Kp, extend=jitter_on),
         occ=occ.to(torch.int32).contiguous(), e1=e1, step_world=step_world,
@@ -250,17 +328,28 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
         win=win.contiguous(), e0=e0,
         early_termination=float(early_termination), d1=D1, d2=D2, k_real=K,
     )
+    # a lit frame without a λ ceiling keeps composite's defaults, so that
+    # its arguments are also those of the backward (shearwarp_grad)
+    if depth_lam is not None:
+        ops["depth_lam"] = torch.as_tensor(
+            depth_lam, dtype=torch.float32, device=dev).contiguous()
+    if mode != "lit":
+        ops["mode"] = mode
+    return ops
 
 
 def shearwarp_intermediate_fused(volume, tf_table, light_volume,
                                  plan: ShearWarpPlan, windowing_vec4,
                                  clip_center, clip_direction,
                                  early_termination: float = EARLY_TERMINATION_ALPHA,
-                                 compute_dtype=None,
-                                 jitter=None) -> torch.Tensor:
-    """Lit shear-warp composite -> (4, n1, n2), the layout
-    `warp.warp_to_screen_fused` reads."""
+                                 compute_dtype=None, jitter=None,
+                                 depth_lam=None, mode: str = "lit",
+                                 sample_nearest: bool = False) -> torch.Tensor:
+    """Shear-warp composite -> (4, n1, n2), the layout
+    `warp.warp_to_screen_fused` reads; see :func:`prepare_composite`
+    (``light_volume`` may be None outside lit mode)."""
     ops = prepare_composite(volume, tf_table, light_volume, plan,
                             windowing_vec4, clip_center, clip_direction,
-                            early_termination, compute_dtype, jitter)
+                            early_termination, compute_dtype, jitter,
+                            depth_lam, mode, sample_nearest)
     return composite(**ops)

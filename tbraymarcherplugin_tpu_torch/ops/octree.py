@@ -1,12 +1,15 @@
-"""The min/max mip pyramid and the occupancy grid of empty-space skipping.
+"""The min/max mip pyramid, the octree render mode's march and the
+occupancy grid of empty-space skipping.
 
-Counterpart of `tbraymarcherplugin_tpu/ops/octree.py` (`build_octree`,
-`_dilate3`, `occupancy_grid`): the max-value pyramid over the pow2-padded
-volume (`GenerateOctreeShader.usf:28-107`), a min-value pyramid beside it,
-and the exact-conservative per-cell occupancy that the blocked march skips
-empty blocks with. The pyramids are ``max_pool3d`` reductions; a min is the
-negated max of the negated volume. The octree render mode
-(`load_mip_nearest`, `march_octree`) comes with a later slice.
+Counterpart of `tbraymarcherplugin_tpu/ops/octree.py`: the max-value
+pyramid over the pow2-padded volume (`GenerateOctreeShader.usf:28-107`), a
+min-value pyramid beside it, :func:`march_octree`
+(`PerformWindowedRaymarchOctree`, `WindowedRaymarchMaterials.usf:99-183`)
+with its nearest-texel :func:`load_mip_nearest`, and the
+exact-conservative per-cell occupancy that the blocked march skips empty
+blocks with. The pyramids are ``max_pool3d`` reductions; a min is the
+negated max of the negated volume. Plain PyTorch: the JAX package has no
+kernel here.
 """
 
 from __future__ import annotations
@@ -16,6 +19,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .compositing import EARLY_TERMINATION_ALPHA, accumulate
+from .march import _as_device, _loop_bound, _march_state
+from .rays import RayBatch
+from .sampling import (VOLUME_DENSITY, is_clipped,
+                       sample_windowed_transfer_function)
 from .transfer import windowed_tf_range_occupied
 
 NUM_MIPS = 4  # `OctreeShaders.cpp:45` binds NumMips = 4
@@ -66,6 +74,65 @@ def build_octree(volume: torch.Tensor, max_value: float = 1.0,
     padded[: dims[0], : dims[1], : dims[2]] = volume * max_value
     return Octree(mips=_build_mips(padded, num_mips, "max"), data_dims=dims,
                   min_mips=_build_mips(padded, num_mips, "min"))
+
+
+def load_mip_nearest(mip: torch.Tensor, voxel_pos: torch.Tensor) -> torch.Tensor:
+    """Integer-truncation texel load (`Texture3D.Load`) of ``mip`` at
+    (..., 3) texel coordinates, each index clamped to the mip."""
+    idx = voxel_pos.to(torch.int32).long()  # truncates toward zero
+    ix = idx[..., 0].clamp(0, mip.shape[0] - 1)
+    iy = idx[..., 1].clamp(0, mip.shape[1] - 1)
+    iz = idx[..., 2].clamp(0, mip.shape[2] - 1)
+    return mip.reshape(-1)[(ix * mip.shape[1] + iy) * mip.shape[2] + iz]
+
+
+def march_octree(octree: Octree, tf_table: torch.Tensor, rays: RayBatch,
+                 windowing_vec4, clip_center, clip_direction, jitter=None,
+                 step_count: int = 150, mip: int = 0,
+                 early_termination: float = EARLY_TERMINATION_ALPHA
+                 ) -> torch.Tensor:
+    """The octree mode's march (`PerformWindowedRaymarchOctree`,
+    usf:99-183) -> (..., 4) RGBA: unlit, mip ``mip`` sampled with nearest
+    loads. UVW scales into the mip's texels, the z coordinate by data depth
+    / padded depth to cancel the pow2 padding (usf:149-151). The final
+    fractional step keeps the main loop's opacity step."""
+    mip_arr = octree.mips[mip]
+    win = _as_device(windowing_vec4, mip_arr)
+    cc, cd = (_as_device(x, mip_arr) for x in (clip_center, clip_direction))
+    st = _march_state(rays, step_count, jitter)
+    step_world = VOLUME_DENSITY * st.step_size
+    z_rescale = octree.data_dims[2] / octree.mips[0].shape[2]
+    scale = (torch.tensor(mip_arr.shape, dtype=torch.float32,
+                          device=mip_arr.device)
+             * torch.tensor([1.0, 1.0, z_rescale], dtype=torch.float32,
+                            device=mip_arr.device))
+
+    def sample_at(pos):
+        value = load_mip_nearest(mip_arr, pos * scale)
+        return sample_windowed_transfer_function(value, step_world, tf_table,
+                                                 win)
+
+    ray_shape = rays.thickness.shape
+    pos = st.pos0
+    energy = torch.zeros(ray_shape + (4,), device=pos.device)
+    terminated = torch.zeros(ray_shape, dtype=torch.bool, device=pos.device)
+    for i in range(_loop_bound(st.n_full, step_count)):
+        in_range = i < st.n_full
+        pos = torch.where(in_range[..., None], pos + st.step_vec, pos)
+        active = in_range & ~terminated & ~is_clipped(pos, cc, cd)
+        energy = torch.where(active[..., None],
+                             accumulate(energy, sample_at(pos)), energy)
+        over = active & (energy[..., 3] > early_termination)
+        energy = torch.cat([energy[..., :3], torch.where(
+            over, torch.ones_like(energy[..., 3]), energy[..., 3])[..., None]],
+            -1)
+        terminated = terminated | over
+
+    pos_f = pos + st.step_vec * st.final_frac[..., None]
+    active_f = (~terminated & (st.final_frac > 0.0)
+                & ~is_clipped(pos_f, cc, cd))
+    return torch.where(active_f[..., None],
+                       accumulate(energy, sample_at(pos_f)), energy)
 
 
 def _dilate3(x: torch.Tensor, op: str) -> torch.Tensor:

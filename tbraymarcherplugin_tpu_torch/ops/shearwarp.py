@@ -1,5 +1,5 @@
-"""Shear-warp factorization: host plan, pre-shear, the dense composite and
-the plain screen warp.
+"""Shear-warp factorization: host plan, pre-shear, the dense composite, the
+plain screen warp and the scene-depth λ ceiling.
 
 Counterpart of `tbraymarcherplugin_tpu/ops/shearwarp.py`. The perspective
 view factors into (1) a separable per-plane 2D resample of the volume onto
@@ -254,25 +254,37 @@ def _t(x, device, dtype=None):
     return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
 
 
-def _volume_planes(vol_t: torch.Tensor, plan: ShearWarpPlan) -> torch.Tensor:
+def _volume_planes(vol_t: torch.Tensor, plan: ShearWarpPlan,
+                   nearest: bool = False) -> torch.Tensor:
     """Front-to-back (K, D1, D2) sample planes of the axis-permuted volume:
-    slice takes, or a two-slice lerp for fractional plane positions."""
+    slice takes, or a two-slice lerp for fractional plane positions;
+    ``nearest`` takes the closer slice instead (the octree mode's
+    `Texture3D.Load`)."""
     dev = vol_t.device
-    v0 = vol_t[_t(plan.m_src, dev)]
     if plan.mfrac is None:
-        return v0
+        return vol_t[_t(plan.m_src, dev)]
+    if nearest:
+        return vol_t[_t(np.where(plan.mfrac < 0.5, plan.m_src, plan.msrc_hi),
+                        dev)]
+    v0 = vol_t[_t(plan.m_src, dev)]
     v1 = vol_t[_t(plan.msrc_hi, dev)]
     t = _t(plan.mfrac, dev)[:, None, None]
     return v0 * (1.0 - t) + v1 * t
 
 
-def _resample_matrices(a, b, dim: int, n: int, dtype) -> torch.Tensor:
+def _resample_matrices(a, b, dim: int, n: int, dtype,
+                       nearest: bool = False) -> torch.Tensor:
     """Banded linear-interpolation matrices S (B, dim, n):
-    S[p, m, i] = hat(clip(a[p] + b[p] * i, 0, dim - 1) - m)."""
+    S[p, m, i] = hat(clip(a[p] + b[p] * i, 0, dim - 1) - m); with
+    ``nearest`` a one-hot selection of floor(clip(...) + 0.5) (the octree
+    mode's nearest texel)."""
     i = torch.arange(n, dtype=torch.float32, device=a.device)
     v = a[:, None] + b[:, None] * i[None, :]
     vc = v.clamp(0.0, float(dim - 1))
     m = torch.arange(dim, dtype=torch.float32, device=a.device)
+    if nearest:
+        sel = torch.floor(vc + 0.5)
+        return (sel[:, None, :] == m[None, :, None]).to(dtype)
     S = (1.0 - (vc[:, None, :] - m[None, :, None]).abs()).clamp(min=0.0)
     return S.to(dtype)
 
@@ -288,15 +300,17 @@ def plane_dtype(compute_dtype, device) -> torch.dtype:
 
 
 def _resample_block(slices, a1, b1, a2, b2, n1: int, n2: int,
-                    dtype=torch.float32, f32_out: bool = False) -> torch.Tensor:
+                    dtype=torch.float32, f32_out: bool = False,
+                    nearest: bool = False) -> torch.Tensor:
     """(B, D1, D2) slices -> (B, n1, n2) sheared samples by two batched
-    banded matmuls (exactly separable bilinear), stored as ``dtype``.
+    banded matmuls (exactly separable bilinear, or with ``nearest`` a
+    one-hot selection of the nearest texel), stored as ``dtype``.
 
     ``f32_out``: the operands are rounded to ``dtype`` but the products are
     float32, as the JAX package's ``preferred_element_type=float32`` einsums
     (the dense composite's samples); the fused path stores ``dtype``."""
-    S1 = _resample_matrices(a1, b1, slices.shape[1], n1, dtype)
-    S2 = _resample_matrices(a2, b2, slices.shape[2], n2, dtype)
+    S1 = _resample_matrices(a1, b1, slices.shape[1], n1, dtype, nearest)
+    S2 = _resample_matrices(a2, b2, slices.shape[2], n2, dtype, nearest)
     if not f32_out:
         t = torch.bmm(S1.transpose(1, 2), slices.to(dtype))
         return torch.bmm(t, S2)
@@ -568,3 +582,62 @@ def shearwarp_lit(volume, tf_table, light_volume, plan: ShearWarpPlan,
         early_termination=early_termination, stop_early=stop_early,
         compute_dtype=compute_dtype)
     return warp_to_screen(inter, plan, width, height)
+
+
+def depth_to_lambda_max(plan: ShearWarpPlan, scene_depth, width: int,
+                        height: int, device=None) -> torch.Tensor:
+    """(n1, n2) per-intermediate-pixel λ ceiling from a (height, width)
+    scene-depth map (distances along the normalized local ray, the units of
+    `rays.setup_rays`'s ``scene_depth``; `rays.scene_depth_from_plane`
+    makes one). The sample of plane k sits at camera distance r·λ_k, so the
+    composite masks samples with λ > depth / r: the shear-warp form of the
+    reference's depth-buffer clamp (`RaymarchMaterialCommon.usf:26-44`).
+
+    Each grid point maps to the screen by the closed-form inverse
+    homography (the 2x2 system (p_row - g·pd_row)·(u, v, 1) = 0), where the
+    depth map is sampled bilinearly; +inf where that depth is not finite.
+    ``device``: the output's (default: the depth map's, if a tensor)."""
+    if device is None and isinstance(scene_depth, torch.Tensor):
+        device = scene_depth.device
+    f32 = torch.float32
+    depth = torch.as_tensor(scene_depth, dtype=f32, device=device)
+    ii = torch.arange(plan.n1, dtype=f32, device=device)
+    jj = torch.arange(plan.n2, dtype=f32, device=device)
+    g1 = float(plan.o1) + (ii + 0.5) * float(plan.d1)  # (n1,)
+    g2 = float(plan.o2) + (jj + 0.5) * float(plan.d2)  # (n2,)
+    p1r, p2r, pdr = (np.asarray(r, np.float32).tolist() for r in
+                     (plan.p1row, plan.p2row, plan.pdrow))
+    a11 = (p1r[0] - g1 * pdr[0])[:, None]
+    a12 = (p1r[1] - g1 * pdr[1])[:, None]
+    b1 = -(p1r[2] - g1 * pdr[2])[:, None]
+    a21 = (p2r[0] - g2 * pdr[0])[None, :]
+    a22 = (p2r[1] - g2 * pdr[1])[None, :]
+    b2 = -(p2r[2] - g2 * pdr[2])[None, :]
+    det = a11 * a22 - a12 * a21
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    u = (b1 * a22 - a12 * b2) / det  # (n1, n2) screen column
+    v = (a11 * b2 - b1 * a21) / det  # (n1, n2) screen row
+
+    uc = u.clamp(0.0, width - 1.0)
+    vc = v.clamp(0.0, height - 1.0)
+    u0 = torch.floor(uc)
+    v0 = torch.floor(vc)
+    fu = uc - u0
+    fv = vc - v0
+    u0, v0 = u0.long(), v0.long()
+    u1 = (u0 + 1).clamp(max=width - 1)
+    v1 = (v0 + 1).clamp(max=height - 1)
+    flat = depth.reshape(-1)
+
+    def at(vi, ui):
+        return flat[vi * width + ui]
+
+    d = (at(v0, u0) * (1 - fu) * (1 - fv) + at(v0, u1) * fu * (1 - fv)
+         + at(v1, u0) * (1 - fu) * fv + at(v1, u1) * fu * fv)
+
+    cam = np.asarray(plan.cam, np.float32)
+    c1, c2, cd = (float(cam[a]) for a in (*plan.axes12, plan.axis))
+    dz = float(np.float32(plan.z0) - np.float32(cd))
+    r = torch.sqrt((g1[:, None] - c1) ** 2 + (g2[None, :] - c2) ** 2
+                   + float(np.float32(dz) ** 2))
+    return torch.where(torch.isfinite(d), d / r, torch.full_like(d, math.inf))

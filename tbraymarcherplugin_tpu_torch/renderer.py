@@ -1,4 +1,4 @@
-"""Scene orchestration: the `ARaymarchVolume` equivalent, lit mode.
+"""Scene orchestration: the `ARaymarchVolume` equivalent.
 
 Counterpart of `tbraymarcherplugin_tpu/renderer.py`. :class:`Renderer` owns
 the volume, TF, windowing and illumination state, tracks what changed since
@@ -9,12 +9,15 @@ the last frame and updates the illumination volume accordingly
 - a single light moved                                   -> selective update
 - more than half the lights changed                      -> full rebuild
 
-A frame is a shear-warp render: the host plan (cached per camera), the
-composite (kernel K1) and the two-pass screen warp (kernel K2). When the
-camera sits inside the volume's dominant slab the factorization does not
-exist, and the frame is a ray march instead: kernel K9 by default, or the
-blocked march with empty-space skipping, or the step-by-step march
-(``march_impl``).
+A frame in any of the three render modes (lit, intensity, octree) is a
+shear-warp render: the host plan (cached per camera), the composite
+(kernel K1 in the mode's variant, with a scene-depth ceiling when the
+caller gives a depth map) and the two-pass screen warp (kernel K2). When
+the camera sits inside the volume's dominant slab the factorization does
+not exist, and the frame is a ray march instead: in lit mode kernel K9 by
+default, or the blocked march with empty-space skipping, or the
+step-by-step march (``march_impl``); in the other modes
+`march.march_intensity` or `octree.march_octree`.
 """
 
 from __future__ import annotations
@@ -36,13 +39,11 @@ from .ops.rays import jitter_values, setup_rays
 from .ops.transfer import default_grayscale_tf
 from .ops.warp import warp_to_screen_fused
 from .scene import Camera, ClipPlane, DirLight, VolumeTransform
+from .utils.device import resolve_device
 from .utils.volume_info import VolumeInfo, WindowingParameters
 
 RENDER_MODES = ("lit", "intensity", "octree")
 MARCH_IMPLS = ("auto", "shearwarp", "pallas", "blocked", "scan")
-
-_NOT_PORTED = ("not ported yet: {what}. It comes with a later slice of the "
-               "port (ROADMAP.md, 'Modules to port').")
 
 
 @dataclasses.dataclass
@@ -50,6 +51,8 @@ class RendererConfig:
     """Quality and behaviour knobs (see the JAX package's RendererConfig).
 
     - ``step_count``: sample planes per frame (`RaymarchingSteps`).
+    - ``render_mode``: "lit", "intensity" (first-hit windowed intensity)
+      or "octree" (unlit, nearest texels of mip ``octree_mip``).
     - ``light_volume_half_resolution``: 8x fewer light voxels.
     - ``light_volume_32bit``: False emulates the reference's 8-bit light
       volume by quantizing after every update.
@@ -58,10 +61,12 @@ class RendererConfig:
     - ``compat_final_step``: the march's final fractional step keeps the
       reference's opacity step (see `ops/march.py`).
     - ``march_impl``: "auto" and "shearwarp" render by shear-warp and fall
-      back to the march (K9) for a camera inside the dominant slab;
-      "pallas" always marches through K9 (`ops/fused_march.py`), "blocked"
-      through `march.march_lit_tiled`/`march_lit_blocked`, "scan" through
-      `march.march_lit`.
+      back to the march for a camera inside the dominant slab (lit: K9);
+      "pallas" always marches, in lit mode through K9
+      (`ops/fused_march.py`), "blocked" through
+      `march.march_lit_tiled`/`march_lit_blocked`, "scan" through
+      `march.march_lit`; the intensity and octree modes march through
+      `march.march_intensity` and `octree.march_octree` for every value.
     - ``empty_space_skipping``: the "blocked" march skips blocks that the
       occupancy grid (`ops/octree.py`) proves empty; exact for the image.
     """
@@ -70,6 +75,7 @@ class RendererConfig:
     render_mode: str = "lit"
     light_volume_half_resolution: bool = False
     light_volume_32bit: bool = True
+    octree_mip: int = 0
     jitter: bool = True
     early_termination: float = 0.95
     apply_write_threshold: bool = True
@@ -85,7 +91,9 @@ def _quantize_u8(x: torch.Tensor) -> torch.Tensor:
 
 class Renderer(nn.Module):
     """Holds scene state on ``device``, keeps the illumination volume fresh
-    and renders lit frames."""
+    and renders frames. With no ``device``, a tensor volume keeps its
+    device and anything else goes to the card (`utils.device.
+    resolve_device`); the CPU only when asked for."""
 
     def __init__(self, volume, info: Optional[VolumeInfo] = None,
                  tf_table=None, windowing: Optional[WindowingParameters] = None,
@@ -98,7 +106,8 @@ class Renderer(nn.Module):
             raise ValueError(f"unknown march_impl {self.config.march_impl!r}; "
                              f"choose {MARCH_IMPLS}")
         self._check_mode(self.config.render_mode)
-        volume = torch.as_tensor(volume, dtype=torch.float32, device=device)
+        volume = torch.as_tensor(volume, dtype=torch.float32,
+                                 device=resolve_device(device, like=volume))
         self._has_real_info = info is not None
         self.info = info or VolumeInfo(
             dimensions=tuple(volume.shape), is_normalized=True,
@@ -140,9 +149,6 @@ class Renderer(nn.Module):
     def _check_mode(mode):
         if mode not in RENDER_MODES:
             raise ValueError(f"unknown render mode {mode!r}; choose {RENDER_MODES}")
-        if mode != "lit":
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"render mode {mode!r}"))
 
     def _default_scale(self):
         """World size of the proxy cube: WorldDimensions / 10 with real
@@ -300,8 +306,11 @@ class Renderer(nn.Module):
             self._prev_lights[name] = self._light_key(light)
         self._maybe_quantize()
 
-    def ensure_octree(self):
-        """Bring the min/max pyramid up to date (`bRequestedOctreeRebuild`)."""
+    def ensure_octree(self, force: bool = False):
+        """Bring the min/max pyramid up to date (`bRequestedOctreeRebuild`)
+        in octree mode, or in any mode with ``force``."""
+        if not (force or self.config.render_mode == "octree"):
+            return
         if self.octree is None or self._octree_dirty:
             self.octree = O.build_octree(self.volume, max_value=1.0)
             self._octree_dirty = False
@@ -310,16 +319,19 @@ class Renderer(nn.Module):
 
     def render(self, camera: Camera, width: int, height: int,
                scene_depth=None) -> torch.Tensor:
-        """Render one frame: (height, width, 4) RGBA on the renderer's
-        device.
+        """Render one frame in the current render mode: (height, width, 4)
+        RGBA on the renderer's device.
 
         ``scene_depth``: optional (height, width) occluder depth along each
         normalized local ray (`rays.scene_depth_from_plane` makes one), the
-        reference's depth-buffer clamp (`RaymarchMaterialCommon.usf:26-44`);
-        march frames only.
+        reference's depth-buffer clamp (`RaymarchMaterialCommon.usf:26-44`):
+        a per-pixel λ ceiling on shear-warp frames
+        (`shearwarp.depth_to_lambda_max`), the rays' exit on march frames.
         """
-        self._check_mode(self.config.render_mode)
+        mode = self.config.render_mode
+        self._check_mode(mode)
         self.ensure_lighting()
+        self.ensure_octree()
         if self.config.march_impl in ("auto", "shearwarp"):
             img = self._render_shearwarp(camera, width, height, scene_depth)
             if img is not None:
@@ -333,44 +345,86 @@ class Renderer(nn.Module):
             jitter = jitter_values(width, height, self._frame_index,
                                    device=self.device)
             self._frame_index += 1
-        return self._render_lit(rays, jitter)
+        if mode == "lit":
+            return self._render_lit(rays, jitter)
+        win = self.windowing.as_vec4(self.device)
+        local_clip = self.transform.local_clip_plane(self.clip_plane)
+        if mode == "intensity":
+            return M.march_intensity(
+                self.volume, rays, win, local_clip.center,
+                local_clip.direction, jitter=jitter,
+                step_count=self.config.step_count)
+        return O.march_octree(
+            self.octree, self.tf_table, rays, win, local_clip.center,
+            local_clip.direction, jitter=jitter,
+            step_count=self.config.step_count, mip=self.config.octree_mip,
+            early_termination=self.config.early_termination)
 
-    def _render_shearwarp(self, camera: Camera, width: int, height: int,
-                          scene_depth=None):
-        """The shear-warp frame, or None when the camera sits inside the
-        volume's dominant slab (no plan: the caller marches instead)."""
+    def _plan(self, camera: Camera, width: int, height: int, vol_shape,
+              light_shape):
+        """The shear-warp plan of this frame (None inside the dominant
+        slab), cached per camera, volume, mode and mip."""
         key = (
+            self.config.render_mode, self.config.octree_mip,
             camera.position.tobytes(), camera.rotation.tobytes(),
             float(camera.tan_half_fov), self.transform.rotation.tobytes(),
             self.transform.translation.tobytes(),
             self.transform.scale.tobytes(), width, height,
-            tuple(self.volume.shape), tuple(self.light_volume.shape),
-            self.config.step_count,
+            tuple(vol_shape), tuple(light_shape), self.config.step_count,
         )
         if self._sw_key != key:
             self._sw_plan = SW.plan_shearwarp(
-                camera, self.transform, self.volume.shape,
-                self.light_volume.shape, width, height,
-                max_planes=self.config.step_count,
-            )
+                camera, self.transform, vol_shape, light_shape, width, height,
+                max_planes=self.config.step_count)
             self._sw_key = key
-        plan = self._sw_plan
+        return self._sw_plan
+
+    def _mode_volume(self) -> torch.Tensor:
+        """The volume an intensity or octree frame composites: the volume;
+        in octree mode mip ``octree_mip`` of the pow2-padded max pyramid
+        (`render` keeps it up to date), its z cut to the data's extent."""
+        if self.config.render_mode != "octree":
+            return self.volume
+        oc = self.octree
+        mip = oc.mips[self.config.octree_mip]
+        z_eff = max(1, -(-mip.shape[2] * oc.data_dims[2]
+                         // oc.mips[0].shape[2]))
+        return mip[:, :, :z_eff]
+
+    def _render_shearwarp(self, camera: Camera, width: int, height: int,
+                          scene_depth=None):
+        """The shear-warp frame in the current render mode, or None when
+        the camera sits inside the volume's dominant slab (no plan: the
+        caller marches instead). Lit frames composite the volume and the
+        light volume; intensity frames the first hit of the volume; octree
+        frames the unlit, nearest-texel composite of the mode's mip."""
+        mode = self.config.render_mode
+        if mode == "lit":
+            vol, light = self.volume, self.light_volume
+            plan = self._plan(camera, width, height, vol.shape, light.shape)
+        else:
+            vol, light = self._mode_volume(), None
+            plan = self._plan(camera, width, height, vol.shape, vol.shape)
         if plan is None:
             return None
-        if scene_depth is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="the scene-depth clamp of a shear-warp frame "
-                     "(depth_to_lambda_max)"))
         jitter = None
         if self.config.jitter:
             jitter = jitter_values(plan.n2, plan.n1, self._frame_index,
                                    device=self.device)
             self._frame_index += 1
+        depth_lam = None
+        if scene_depth is not None:
+            depth_lam = SW.depth_to_lambda_max(plan, scene_depth, width,
+                                               height, device=self.device)
         local_clip = self.transform.local_clip_plane(self.clip_plane)
         inter = shearwarp_intermediate_fused(
-            self.volume, self.tf_table, self.light_volume, plan,
-            self.windowing.as_vec4(), local_clip.center, local_clip.direction,
+            vol, self.tf_table, light, plan, self.windowing.as_vec4(),
+            local_clip.center, local_clip.direction,
             early_termination=self.config.early_termination, jitter=jitter,
+            depth_lam=depth_lam,
+            mode={"lit": "lit", "intensity": "intensity",
+                  "octree": "unlit"}[mode],
+            sample_nearest=mode == "octree",
         )
         return warp_to_screen_fused(inter, plan, width, height)
 
@@ -392,7 +446,7 @@ class Renderer(nn.Module):
         ess = {}
         if cfg.empty_space_skipping:
             if self._occ is None:
-                self.ensure_octree()
+                self.ensure_octree(force=True)
                 self._occ = O.occupancy_grid(self.octree, win, self.tf_table)
             ess = dict(occ_grid=self._occ.grid,
                        occ_scale=self._occ.cell_scale, skip_blocks=True)

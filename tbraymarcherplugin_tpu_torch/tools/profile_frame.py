@@ -1,6 +1,6 @@
 """Where the time of a lit frame, an illumination rebuild, a light move,
-differentiable fwd+bwd steps, a fit step and a fly-through frame goes on
-one CUDA device.
+differentiable fwd+bwd steps, a fit step, a fly-through frame and the
+intensity and octree frames goes on one CUDA device.
 
     python -m tbraymarcherplugin_tpu_torch.tools.profile_frame
 
@@ -18,8 +18,10 @@ the dense composite with its default "xla" TF unit, TF and window
 trained) from window center 0.6 toward that frame; and for
 ``fly_through`` the same scene from a camera inside the volume
 (`look_at((0.1, -0.3, 0.05), 0)` at 60 degrees), where shear-warp has no
-plan and the frame is the ray march (kernel K9). It warms every phase up
-once, then times and profiles ``REPS`` calls of each phase and prints:
+plan and the frame is the ray march (kernel K9); ``intensity_frame`` and
+``octree_frame`` are the bench camera's frame in those render modes (K1's
+intensity and unlit variants, then K2). It warms every phase up once, then
+times and profiles ``REPS`` calls of each phase and prints:
 
 - ``wall``: host-clock ms per call without the profiler, work ended by
   ``torch.cuda.synchronize()``;
@@ -157,15 +159,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     volume = torch.from_numpy(synthetic.ct_like_phantom(DIMS, seed=0)).to(dev)
 
-    def make_renderer():
+    def make_renderer(mode="lit"):
         rend = Renderer(volume, tf_table=T.tf_ct_bone(device=dev),
                         windowing=WindowingParameters(*WINDOW),
-                        config=RendererConfig(step_count=STEPS, jitter=True),
+                        config=RendererConfig(step_count=STEPS, jitter=True,
+                                              render_mode=mode),
                         device=dev)
         rend.add_light("sun", DirLight.create(LIGHT_DIRS[0], 1.0))
         return rend
 
     r, r_fly = make_renderer(), make_renderer()
+    r_modes = {m: make_renderer(m) for m in ("intensity", "octree")}
     cam = Camera.look_at(CAM_POS, 0.0, fov_degrees=FOV)
     fly_cam = Camera.look_at(FLY_POS, 0.0, fov_degrees=FLY_FOV)
     moves = [0]
@@ -229,7 +233,11 @@ def main() -> int:
               ("light_move", light_move),
               ("fwd_bwd", lambda: step("fused")),
               ("dense_fwd_bwd", lambda: step("pallas")),
-              ("fit_step", fit_step), ("fly_through", fly_through))
+              ("fit_step", fit_step), ("fly_through", fly_through),
+              ("intensity_frame",
+               lambda: r_modes["intensity"].render(cam, WIDTH, HEIGHT)),
+              ("octree_frame",
+               lambda: r_modes["octree"].render(cam, WIDTH, HEIGHT)))
     for _, fn in phases:  # build the kernels, the plan and the caches
         fn()
     print(f"[profile] {torch.cuda.get_device_name(0)} | {card} | torch "

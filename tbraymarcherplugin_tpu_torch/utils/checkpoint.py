@@ -7,7 +7,8 @@ checkpoint of a tree of tensors (nested dicts, tuples and lists,
 the newest ``ckpt_%08d.npz`` files. The tree's structure, with its
 non-tensor values (hyperparameters, flags), is kept as JSON beside the
 leaves (``tree_json``), so a tree restores without a template of the same
-shape; restored tensors go to the device of the tree they restore into.
+shape; restored tensors go to the device the caller names, or to that of
+the tree they restore into.
 The two packages' checkpoints are not meant to be read by each other.
 """
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.pipeline import RenderParams
+from .device import resolve_device
 
 _FIELDS = ("volume", "tf_table", "window_center", "window_width",
            "light_intensities")
@@ -59,7 +61,7 @@ def _decode(node: dict, leaves, device) -> Any:
 
 
 def _device_of(tree: Any):
-    """The device of the first tensor in ``tree`` (the CPU if none)."""
+    """The device of the first tensor in ``tree`` (None if it has none)."""
     if isinstance(tree, torch.Tensor):
         return tree.device
     if isinstance(tree, RenderParams):
@@ -88,10 +90,12 @@ def save_pytree(path: str, tree: Any, metadata: dict | None = None) -> None:
     np.savez(path if path.endswith(".npz") else path + ".npz", **arrays)
 
 
-def restore_pytree(path: str, like: Any) -> tuple[Any, dict]:
+def restore_pytree(path: str, like: Any,
+                   device=None) -> tuple[Any, dict]:
     """Restore a tree saved by :func:`save_pytree` -> (tree, metadata); its
-    tensors go to the device of ``like``'s first tensor (the CPU if it has
-    none)."""
+    tensors go to ``device``, or with None to the device of ``like``'s first
+    tensor, or, if it has none, to the card (`utils.device.
+    resolve_device`)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as z:
@@ -100,7 +104,7 @@ def restore_pytree(path: str, like: Any) -> tuple[Any, dict]:
         leaves = [z[f"leaf_{i}"] for i in range(n)]
         meta = (json.loads(bytes(z["metadata_json"].tobytes()).decode())
                 if "metadata_json" in z.files else {})
-    device = _device_of(like) or torch.device("cpu")
+    device = resolve_device(device, like=_device_of(like))
     return _decode(structure, leaves, device), meta
 
 
@@ -131,8 +135,9 @@ class CheckpointManager:
         for old in self.all_steps()[: -self.max_to_keep]:
             os.remove(self._path(old))
 
-    def restore(self, like: Any, step: int | None = None) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: int | None = None,
+                device=None) -> tuple[Any, dict]:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        return restore_pytree(self._path(step), like)
+        return restore_pytree(self._path(step), like, device)

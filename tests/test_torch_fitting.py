@@ -85,7 +85,8 @@ def test_fit_matches_jax(march_impl):
         _jax_params(start), jrays, jnp.asarray(target), jclip.center,
         jclip.direction, jplans, DIMS,
         JF.FitConfig(shearwarp_plan=jplan, **kw), return_metrics=True)
-    params, plans = convert.to_port_render_params(start, LIGHTS, DIMS)
+    params, plans = convert.to_port_render_params(start, LIGHTS, DIMS,
+                                                  device="cpu")
     fitted, got, got_m = PF.fit(
         params, prays, torch.from_numpy(target.copy()), pclip.center,
         pclip.direction, plans, DIMS,
@@ -114,7 +115,8 @@ def test_fit_recovers_window_center():
     from tbraymarcherplugin_tpu_torch.models.pipeline import render_lit_scene
 
     arrays, _, (pcam, pt) = _scene(10)
-    params, plans = convert.to_port_render_params(arrays, LIGHTS, DIMS)
+    params, plans = convert.to_port_render_params(arrays, LIGHTS, DIMS,
+                                                  device="cpu")
     rays = PR.setup_rays(pcam, pt, 10, 10)
     clip = PS.ClipPlane.disabled()
     with torch.no_grad():

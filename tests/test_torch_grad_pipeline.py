@@ -52,7 +52,7 @@ def _jax_scene(center=0.55):
 def _port_scene(jparams, requires_grad=True):
     params, plans = convert.to_port_render_params(
         {f: np.asarray(getattr(jparams, f)) for f in FIELDS}, LIGHTS, DIMS,
-        requires_grad=requires_grad)
+        device="cpu", requires_grad=requires_grad)
     cam = PS.Camera.look_at(*CAM, fov_degrees=40.0)
     tr = PS.VolumeTransform.create()
     plan = PSW.plan_shearwarp(cam, tr, DIMS, DIMS, W, H, max_n=64)
@@ -209,7 +209,8 @@ def test_pallas_branch_is_forward_only_k9():
 def test_convert_render_params_matches_jax_light_plans():
     jparams = _jax_scene()[0]
     params, plans = convert.to_port_render_params(
-        {f: np.asarray(getattr(jparams, f)) for f in FIELDS}, LIGHTS, DIMS)
+        {f: np.asarray(getattr(jparams, f)) for f in FIELDS}, LIGHTS, DIMS,
+        device="cpu")
     jplans = tuple(JP.LightPlan.create(d, DIMS) for d in LIGHTS)
     for pp, jp in zip(plans, jplans):
         for a, b in zip(pp.face_plans, jp.face_plans):

@@ -94,6 +94,92 @@ def test_composite_kernel_matches_plain(cuda, gen, dtype, jitter):
                                rtol=0, atol=2e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["intensity", "unlit_nearest",
+                                     "lit_depth", "intensity_depth"])
+def test_composite_variants_match_plain(cuda, gen, dtype, variant):
+    """K1's intensity, unlit (on nearest-texel planes) and λ-ceiling
+    variants against the plain version, jitter and a clip plane on."""
+    dims = (64, 64, 48)
+    plan = _plan(dims, 320, 180, max_planes=60)
+    vol = torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda)
+    jit = torch.from_numpy(gen.random((plan.n1, plan.n2),
+                                      dtype=np.float32)).to(cuda)
+    mode = variant.split("_")[0]
+    lv = (torch.from_numpy(gen.random(dims, dtype=np.float32)).to(cuda)
+          if mode == "lit" else None)
+    lmax = None
+    if variant.endswith("depth"):  # a ceiling mid-volume on the left half
+        lam = float(plan.lam[len(plan.lam) // 2])
+        lmax = torch.full((plan.n1, plan.n2), float("inf"), device=cuda)
+        lmax[:, : plan.n2 // 2] = lam + 0.05 * torch.from_numpy(
+            gen.standard_normal((plan.n1, plan.n2 // 2)).astype(
+                np.float32)).to(cuda)
+    clip = PS.ClipPlane(*CLIP)
+    ops = PC.prepare_composite(
+        vol, T.tf_ct_bone(device=cuda), lv, plan, WINDOWS[0], clip.center,
+        clip.direction, compute_dtype=dtype, jitter=jit, depth_lam=lmax,
+        mode=mode, sample_nearest=variant == "unlit_nearest")
+    name = PC.variant(mode, lmax)
+    before = PC.composite.variant_launches[name]
+    got = PC.composite(**ops)
+    assert PC.composite.variant_launches[name] == before + 1
+    stats = {}
+    want = PC.composite_plain(**ops, stats=stats)
+    torch.cuda.synchronize()
+    assert float(want[3].max()) > 0.5
+    assert 0 < stats["samples"] < stats["steps"]
+    if mode == "intensity":  # the same first hit as the plain version
+        np.testing.assert_array_equal(got[3].cpu().numpy(),
+                                      want[3].cpu().numpy())
+    # one-ulp differences of expf/logf against PyTorch's exp/log, and of
+    # the window's division (PyTorch divides by a scalar as a product with
+    # its reciprocal on the card)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=2e-6)
+    with pytest.raises(ValueError, match="lit mode only"):
+        PC.composite(**dict(ops, L=ops["W"] if mode != "lit" else None))
+
+
+@pytest.mark.parametrize("mode", ["intensity", "octree", "lit"])
+def test_renderer_mode_frames_match_plain(cuda, mode):
+    """A `Renderer` frame of each mode (jitter on; lit with a scene-depth
+    map) through K1 and K2 against the same frame through their plain
+    versions, both on bf16 planes."""
+    from tbraymarcherplugin_tpu_torch.renderer import Renderer, RendererConfig
+
+    vol = torch.from_numpy(synthetic.ct_like_phantom((40, 40, 40))).to(cuda)
+    cam = PS.Camera.look_at((0.1, -2.3, 0.4), (0.0, 0.0, 0.0),
+                            fov_degrees=40.0)
+    depth = None
+    if mode == "lit":
+        depth = PR.scene_depth_from_plane(
+            cam, PS.VolumeTransform.create(), 160, 90, (0.1, 0.0, 0.0),
+            (0.3, 0.9, 0.2), device=cuda)
+
+    def frame():
+        r = Renderer(vol, tf_table=T.tf_ct_bone(device=cuda),
+                     config=RendererConfig(step_count=30, render_mode=mode),
+                     device=cuda)
+        r.add_light("sun", PS.DirLight.create((0.3, 0.1, -0.95), 1.0))
+        return r.render(cam, 160, 90, scene_depth=depth)
+
+    before = PC.composite.launches
+    got = frame()
+    assert PC.composite.launches == before + 1
+    with _plain((PC, "composite", PC.composite_plain),
+                (PW, "row_lerp", PW.row_lerp_plain),
+                (PK3, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
+                (PK4, "propagate_face_scan", PK4.propagate_face_scan_plain)):
+        want = frame()
+    torch.cuda.synchronize()
+    assert float(want[..., 3].max()) > 0.5
+    # lit: K3's exp/log ulps reach the light volume (chip_smoke.py's
+    # frame limit)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4 if mode == "lit" else 2e-6)
+
+
 def test_row_lerp_kernel_exact_far_beyond_band(cuda, gen):
     """Index spread ~2000 texels per row (the TPU kernel's band was 254)."""
     rows = torch.from_numpy(gen.random((48, 2048), dtype=np.float32)).to(cuda)

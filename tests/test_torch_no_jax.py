@@ -1,5 +1,6 @@
 """The port imports, renders and differentiates a frame with JAX
-unavailable: a shear-warp frame, a march frame from inside the volume,
+unavailable: a shear-warp frame, a march frame from inside the volume, an
+intensity and an octree frame,
 fwd+bwd through the fused and the dense shear-warp branches and the
 blocked-march branch, and two `fit` steps with a checkpoint."""
 
@@ -17,7 +18,7 @@ from tbraymarcherplugin_tpu_torch.scene import Camera, DirLight
 
 r = Renderer(synthetic.ct_like_phantom((16, 16, 16)),
              tf_table=transfer.tf_ct_bone(),
-             config=RendererConfig(step_count=12))
+             config=RendererConfig(step_count=12), device="cpu")
 r.add_light("sun", DirLight.create([0.3, 0.1, -0.95], 1.0))
 img = r.render(Camera.look_at([0.1, -2.3, 0.4], 0.0, fov_degrees=40.0), 24, 16)
 assert img.shape == (16, 24, 4) and bool(img.isfinite().all())
@@ -26,6 +27,14 @@ assert float(img[..., 3].max()) > 0.0
 img = r.render(Camera.look_at([0.1, -0.3, 0.05], 0.0), 24, 16)
 assert r._sw_plan is None and bool(img.isfinite().all())
 assert float(img[..., 3].max()) > 0.0
+# the intensity and octree modes: shear-warp frames through K1's variants
+for mode in ("intensity", "octree"):
+    r.set_render_mode(mode)
+    img = r.render(Camera.look_at([0.1, -2.3, 0.4], 0.0, fov_degrees=40.0),
+                   24, 16)
+    assert r._sw_plan is not None and bool(img.isfinite().all())
+    assert float(img[..., 3].max()) > 0.0
+r.set_render_mode("lit")
 
 # the differentiable frames: fwd+bwd through K1-K8's, then K10's, plain
 # versions

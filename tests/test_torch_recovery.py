@@ -82,7 +82,7 @@ def test_save_restore_round_trips_trees(tmp_path):
     CK.save_pytree(path, tree, {"note": "hi"})
     with np.load(path + ".npz") as z:
         assert "metadata_json" in z.files and "leaf_0" in z.files
-    got, meta = CK.restore_pytree(path, None)
+    got, meta = CK.restore_pytree(path, None, device="cpu")
     assert meta == {"note": "hi"}
     for f in ("volume", "tf_table", "window_center", "window_width",
               "light_intensities"):
@@ -102,5 +102,5 @@ def test_save_restore_round_trips_trees(tmp_path):
     assert mgr.all_steps() == [2, 3] and mgr.latest_step() == 3
     (tree3, meta3) = mgr.restore({"x": torch.zeros(2)})
     assert meta3["step"] == 3 and torch.equal(tree3["x"], torch.full((2,), 3.))
-    (tree2, _) = mgr.restore(None, step=2)
+    (tree2, _) = mgr.restore(None, step=2, device="cpu")
     assert float(tree2["x"][0]) == 2.0

@@ -1,7 +1,10 @@
 """The slice as a whole: the port's `Renderer` on the CPU (every kernel's
 plain version) vs the JAX package's `Renderer`, from the same state carried
-across by `convert.to_port_state`: shear-warp frames, and march frames for
-a camera inside the volume."""
+across by `convert.to_port_state`: shear-warp frames in the three render
+modes, with and without a scene-depth map, and march frames for a camera
+inside the volume. The JAX `Renderer` takes its shear-warp path only on an
+accelerator, so the port's shear-warp frames are held against the JAX
+functions that path calls, composed by hand with float32 planes."""
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ import torch
 
 from tbraymarcherplugin_tpu import renderer as JRm
 from tbraymarcherplugin_tpu import scene as JS
+from tbraymarcherplugin_tpu.ops import octree as JO
 from tbraymarcherplugin_tpu.ops import rays as JR
 from tbraymarcherplugin_tpu.ops import shearwarp as JSW
 from tbraymarcherplugin_tpu.ops import transfer as JT
@@ -74,13 +78,13 @@ def _state(jr, cam):
 
 def _port_renderer(jr, cam, jitter=False, **cfg):
     arrays, names = _state(jr, cam)
-    st = to_port_state(arrays)
+    st = to_port_state(arrays, device="cpu")
     cfg.setdefault("march_impl", "shearwarp")
     r = Renderer(st["volume"], tf_table=st["tf_table"],
                  windowing=st["windowing"], transform=st["transform"],
                  clip_plane=st["clip_plane"],
                  config=RendererConfig(step_count=STEPS, jitter=jitter,
-                                       **cfg))
+                                       **cfg), device="cpu")
     r.light_volume = st["light_volume"]
     for name, light in zip(names, st["lights"]):
         r.add_light(name, light)
@@ -174,22 +178,125 @@ def test_dirty_flags_and_remove_light():
                                np.asarray(jr.light_volume), rtol=0, atol=1e-5)
 
 
-def test_unported_paths_raise_not_implemented():
+def _jax_frame(jr, jcam, mode="lit", mip=0, scene_depth=None, frame=0):
+    """What the JAX package's accelerator path renders for ``jr``'s state
+    (`renderer.py::_render_shearwarp`, `_render_shearwarp_mode`): the fused
+    composite on float32 planes, jitter of frame ``frame``, the
+    channel-major fused warp."""
+    jr.ensure_lighting()  # lit mode only
+    vol, light = jr.volume, jr.light_volume
+    if mode == "octree":
+        oc = JO.build_octree(jr.volume, max_value=1.0)
+        arr = oc.mips[mip]
+        z_eff = max(1, -(-arr.shape[2] * oc.data_dims[2]
+                         // oc.mips[0].shape[2]))
+        vol = light = arr[:, :, :z_eff]
+    elif mode == "intensity":
+        light = vol
+    plan = JSW.plan_shearwarp(jcam, jr.transform, vol.shape, light.shape, W,
+                              H, max_planes=STEPS)
+    clip = jr.transform.local_clip_plane(jr.clip_plane)
+    inter = shearwarp_intermediate_fused(
+        vol, jr.tf_table, light, plan, jr.windowing.as_vec4(), clip.center,
+        clip.direction, compute_dtype=jnp.float32,
+        jitter=JR.jitter_values(plan.n2, plan.n1, frame),
+        depth_lam=None if scene_depth is None else JSW.depth_to_lambda_max(
+            plan, jnp.asarray(scene_depth), W, H),
+        mode={"lit": "lit", "intensity": "intensity", "octree": "unlit"}[mode],
+        sample_nearest=mode == "octree", out_layout="chw",
+    )
+    return np.asarray(warp_to_screen_fused(inter, plan, W, H,
+                                           channel_major=True))
+
+
+CLIP = JS.ClipPlane.create([0.0, -0.05, 0.0], [0.3, 0.8, 0.52])  # world
+
+
+@pytest.mark.parametrize("mode,mip", [("intensity", 0), ("octree", 0),
+                                      ("octree", 1)])
+def test_mode_frames_match_jax_fused_path(mode, mip):
+    """Intensity and octree frames (jitter on, a clip plane): the port's
+    shear-warp frame is the JAX accelerator path's; the second frame takes
+    the next jitter. The 24^3 volume pads to 32^3, so an octree frame
+    composites the padded mip cut to the data's depth."""
+    jr = _jax_renderer(render_mode=mode, octree_mip=mip)
+    jr.set_clip_plane(CLIP)
+    jcam = JS.Camera.look_at(*CAM, fov_degrees=40.0)
+    port, pcam = _port_renderer(jr, jcam, jitter=True, render_mode=mode,
+                                octree_mip=mip)
+    got = port.render(pcam, W, H).numpy()
+    got2 = port.render(pcam, W, H).numpy()
+    want = _jax_frame(jr, jcam, mode, mip)
+    assert got.shape == (H, W, 4) and want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got2, _jax_frame(jr, jcam, mode, mip, frame=1),
+                               rtol=0, atol=1e-4)
+    assert port._frame_index == 2 and not np.array_equal(got, got2)
+    assert port._sw_plan is not None and port._sw_key[:2] == (mode, mip)
+    if mode == "octree":
+        want_shape = (32 >> mip, 32 >> mip, 24 >> mip)
+        assert port._sw_key[-3] == want_shape  # the cut mip's shape
+        assert port.octree is not None
+    else:
+        assert port.octree is None  # intensity builds no pyramid
+    assert port._lights_dirty  # neither mode builds the illumination
+
+
+def test_lit_frame_with_scene_depth_matches_jax():
+    """A lit shear-warp frame behind an opaque plane through the volume:
+    the λ ceiling of `depth_to_lambda_max` in K1, as the JAX accelerator
+    path computes it; the plane removes alpha."""
+    jr = _jax_renderer()
+    jcam = JS.Camera.look_at(*CAM, fov_degrees=40.0)
+    depth = np.array(JR.scene_depth_from_plane(
+        jcam, jr.transform, W, H, [0.1, 0.0, 0.0], [0.3, 0.9, 0.2]))
+    port, pcam = _port_renderer(jr, jcam, jitter=True)
+    got = port.render(pcam, W, H, scene_depth=depth).numpy()
+    want = _jax_frame(jr, jcam, scene_depth=depth)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    full = port.render(pcam, W, H).numpy()  # the next frame, no depth
+    assert port._sw_plan is not None
+    assert got[..., 3].sum() < full[..., 3].sum() - 1.0
+
+
+@pytest.mark.parametrize("mode", ["intensity", "octree"])
+def test_mode_march_fallback_matches_jax(mode):
+    """The camera inside the volume: no shear-warp plan, the frame marches
+    (`march_intensity`, `march_octree`) as the JAX renderer on the CPU
+    does, with the march's jitter of frame 0; at the renderer tests'
+    march tolerance."""
+    jr = _jax_renderer(jitter=True, render_mode=mode, march_impl="scan")
+    jr.set_clip_plane(CLIP)
+    jcam = JS.Camera.look_at(*INSIDE)
+    port, pcam = _port_renderer(jr, jcam, jitter=True, render_mode=mode,
+                                march_impl="auto")
+    want = np.asarray(jr.render(jcam, W, H))
+    got = port.render(pcam, W, H).numpy()
+    assert port._frame_index == 1 and port._sw_plan is None
+    assert got.shape == (H, W, 4) and want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=MARCH_RTOL, atol=MARCH_ATOL)
+
+
+def test_modes_switch_and_scene_depth_on_march_frames():
+    """Every mode renders through `set_render_mode`; a march frame clips
+    its rays at the scene depth; an unknown mode is refused."""
     vol = synthetic.ct_like_phantom((16, 16, 16))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Renderer(vol, config=RendererConfig(render_mode="intensity"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Renderer(vol, config=RendererConfig(render_mode="octree"))
-    r = Renderer(vol, config=RendererConfig(step_count=16))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        r.set_render_mode("octree")
+    r = Renderer(vol, config=RendererConfig(step_count=16), device="cpu")
     cam = PS.Camera.look_at(*CAM, fov_degrees=40.0)
-    depth = np.ones((16, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="scene-depth"):
-        r.render(cam, 16, 16, scene_depth=depth)  # a shear-warp frame
+    frames = {}
+    for mode in ("intensity", "octree", "lit"):
+        r.set_render_mode(mode)
+        frames[mode] = r.render(cam, 16, 16)
+        assert bool(frames[mode].isfinite().all())
+        assert float(frames[mode][..., 3].max()) > 0.5
+    assert not torch.equal(frames["intensity"], frames["octree"])
+    with pytest.raises(ValueError, match="unknown render mode"):
+        r.set_render_mode("x-ray")
     inside = PS.Camera.look_at(*INSIDE)
-    img = r.render(inside, 16, 16, scene_depth=depth)  # a march frame
-    assert r._sw_plan is None and bool(img.isfinite().all())
+    at_camera = np.zeros((16, 16), np.float32)  # rays of zero length
+    img = r.render(inside, 16, 16, scene_depth=at_camera)  # a march frame
+    assert r._sw_plan is None and float(img.abs().max()) == 0.0
+    assert float(r.render(inside, 16, 16)[..., 3].max()) > 0.5
 
 
 @pytest.mark.parametrize("march_impl", ["auto", "pallas"])
