@@ -9,7 +9,9 @@ Phases, one line each:
      (one nvcc per source, all at once);
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
      at the shapes of the main path (max abs error against a stated limit,
-     CUDA-event times of both);
+     CUDA-event times of both), and K2's row lerp as one `grid_sample`
+     call, K2's yardstick (`library_ms`), checked against the plain version
+     and timed the same ways;
   4. slice: the full lit frame (256^3 CT phantom, bone TF, window
      (0.5, 0.8), one light, 1920x1080, 150 planes, jitter on) through
      `Renderer`: one illumination rebuild, four orbit frames, one light
@@ -43,7 +45,10 @@ Phases, one line each:
      "pallas")`, float32 planes): the illumination kernels' and K10a's and
      K10b's counters must rise, every leaf's gradient must be finite and
      nonzero; K10a and K10b against their plain versions (and against
-     themselves) on the first block's inputs, the image and gradients
+     themselves) on the first block's inputs and on the block with the
+     most histogram adds, with how K10b's adds cluster there (the plain
+     version's `stats=`: hit share, add rounds per warp of 32 elements,
+     runs of equal texels), the image and gradients
      against the "xla" TF unit on the card (and a control with bfloat16
      planes, which must fail those limits), and a 24^3 dense fwd+bwd on
      the card against the CPU;
@@ -52,8 +57,8 @@ Phases, one line each:
      step: finite, descending losses, and the newest checkpoint restored
      on the card equals the fitted leaves;
   9. the gather probe (`tools/micro.py`, K11): its tool's run, then the
-     kernel against `tab[idx]` (exactly), with the G gathers/s of the
-     kernel, the plain version and `torch.index_select`;
+     kernel against `tab[idx]` (exactly), with the times of the kernel,
+     the plain version and `torch.index_select`;
  10. modes: the bench scene through `Renderer` in intensity mode (four
      orbit frames), in octree mode (four, mip 0), and one lit frame behind
      an opaque plane (`scene_depth_from_plane`): K1's intensity, unlit and
@@ -65,9 +70,13 @@ Phases, one line each:
      version counts (`composite_ops`); one march-fallback frame per mode
      (camera inside the volume), timed; a 24^3 frame per mode on the card
      against the CPU.
-Then a JSON line of the kernels (each with its bound, from the inputs it
-was timed on; K1's variants as rows of their own), the card line, and the
-result line.
+Every kernel is timed two ways: ``ms``, CUDA events around back-to-back
+calls of its Python wrapper (host time included where the host is slower
+than the card), and ``device_ms``, the device work alone (`device_ms`:
+torch.profiler's CUDA trace, the kernels, copies and fills of a call, each
+at its mean duration over the calls); each library call too. Then a JSON line of the
+kernels (each with its bound, from the inputs it was timed on; K1's
+variants as rows of their own), the card line, and the result line.
 
 There is no CPU path: without a CUDA device the script exits with an error.
 """
@@ -97,6 +106,11 @@ FOV = 40.0
 # exp/log (K1, K3). K2 and K4 have no transcendentals and agree exactly.
 LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
           "light_scan": 1e-5, "march": 2e-5}
+# `grid_sample` as K2's yardstick against K2's plain version: it maps its
+# normalized coordinate back to texels in float32, ((x + 1) / 2) * (N - 1),
+# which moves a tap by up to ~1e-4 texel at N ~ 1900 (2.3e-5 on the bench
+# frame's rows, NVIDIA H100 80GB HBM3, 700 W); K2 reads idx as it is.
+LIBRARY_LERP_LIMIT = 1e-4
 # Backward kernels against their plain versions on the same inputs, as the
 # largest error over the largest plain value of each output (K5: dW, dL, dTF,
 # d window; K6: d rows; K7: d opacity, sum m, m_0; K8: d values, dTF,
@@ -246,6 +260,57 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def device_ms(torch, fn, reps):
+    """Device time of one ``fn()`` call, the device work alone, from
+    torch.profiler's CUDA trace of ``reps`` calls after one warm-up call:
+    per distinct kernel, copy or fill, its mean duration times its count per
+    call (its events over ``reps``, rounded), summed. Gaps in which the card
+    waits for the host are not counted. The trace has been seen to drop an
+    event now and then, and once every event of a session: a dropped event
+    moves neither the mean nor the rounded count, and a session without
+    events is run again, up to three times. A short spin kernel before and
+    after the calls, left out, keeps the trace's ends off them. Returns (ms,
+    device operations per call)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        finally:
+            os.remove(path)
+        durs = collections.defaultdict(list)
+        for ev in events:
+            if (ev.get("cat") in DEVICE_CATS and "dur" in ev
+                    and MARKER not in ev.get("name", "")):
+                durs[ev.get("name", "")].append(float(ev["dur"]))
+        per_call = {k: round(len(v) / reps) for k, v in durs.items()}
+        if sum(per_call.values()) > 0:
+            us = sum(sum(v) / len(v) * per_call[k] for k, v in durs.items())
+            return us / 1e3, sum(per_call.values())
+    raise AssertionError(f"the profiler's trace of {reps} calls holds no "
+                         f"device operation")
+
+
 def host_ms(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -270,6 +335,24 @@ def _elements(torch, name, args, kw, out):
     if name == "gather_probe":
         return args[1].numel()
     return next(a for a in args if isinstance(a, torch.Tensor)).numel()
+
+
+LERP_KW = dict(mode="bilinear", padding_mode="border", align_corners=True)
+
+
+def row_lerp_library_args(torch, rows, idx, groups):
+    """(input, grid) of ``grid_sample(input, grid, **LERP_KW)``, which
+    computes K2's row lerp with clamp-to-edge in one call: the ``groups``
+    blocks of ``rows`` as a batch of one-channel (Rq, N) images, sampled at
+    x = 2 * idx / (N - 1) - 1 and y on each row exactly."""
+    R, n = rows.shape
+    Rq, Q = idx.shape
+    x = (idx.double() * (2.0 / (n - 1)) - 1.0).float()
+    y = (torch.arange(Rq, dtype=torch.float64, device=idx.device)
+         * (2.0 / (Rq - 1)) - 1.0).float()
+    grid = torch.stack([x, y[:, None].expand(Rq, Q)], dim=-1)
+    return (rows.view(groups, 1, Rq, n),
+            grid[None].expand(groups, Rq, Q, 2).contiguous())
 
 
 def march_ops(stats):
@@ -401,16 +484,21 @@ def replay(torch, name, real, plain, used, card, results):
             rel = max(rel, d / scale if scale > 0 else d)
     ms = sum(cuda_ms(torch, lambda a=a, k=k: real(*a, **k), 5)
              for a, k in used)
+    dev = [sum(x) for x in zip(*(
+        device_ms(torch, lambda a=a, k=k: real(*a, **k), 5)
+        for a, k in used))]
     plain_ms = sum(cuda_ms(torch, lambda a=a, k=k: plain(*a, **k), 1)
                    for a, k in used)
-    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, **bound(torch, name, outs))
+    results[name] = dict(max_abs_err=abs_err, ms=ms, device_ms=dev[0],
+                         plain_ms=plain_ms, library_ms=None,
+                         **bound(torch, name, outs))
     del outs
     print(f"[kernel] {name}: max_abs_err {abs_err:.3e}, relative to the "
           f"plain output's max {rel:.3e} (limit {REPLAY_LIMITS[name]:.1e}) | "
-          f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
-          f"{results[name]['bound_ms']:.3f} ms ({results[name]['bound_by']})"
-          f" | {card}", flush=True)
+          f"kernel {ms:.4f} ms back to back, {dev[0]:.4f} ms on the device "
+          f"({dev[1]:g} device ops per call) | plain {plain_ms:.3f} ms | "
+          f"bound {results[name]['bound_ms']:.4f} ms "
+          f"({results[name]['bound_by']}) | {card}", flush=True)
     check(rel <= REPLAY_LIMITS[name],
           f"{name} disagrees with its plain version")
 
@@ -629,14 +717,17 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
         check(math.isfinite(err), "march: non-finite output")
         flips = int((d[..., 3] > 0.5).sum())  # early-termination flips
         ms = cuda_ms(torch, lambda: K9.march_lit_fused(*args, **kw), 5)
+        dev_ms, _ = device_ms(torch, lambda: K9.march_lit_fused(*args, **kw),
+                              5)
         plain_ms = cuda_ms(torch, lambda: K9.march_lit_fused_plain(*args,
                                                                     **kw), 1)
         timed[label] = (err, ms, plain_ms,
                         bound(torch, "march", [(args, kw, got)],
-                              ops=march_ops(stats)))
+                              ops=march_ops(stats)), dev_ms)
         print(f"[kernel] march ({label}): max_abs_err {err:.3e} (limit "
               f"{LIMITS['march']:.0e}), pixels whose snap flipped {flips} | "
-              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
+              f"kernel {ms:.3f} ms back to back, {dev_ms:.3f} ms on the "
+              f"device | plain {plain_ms:.3f} ms | bound "
               f"{timed[label][3]['bound_ms']:.3f} ms "
               f"({timed[label][3]['bound_by']}; {stats['steps']} steps, "
               f"{stats['samples']} lit samples over {got[..., 0].numel()} "
@@ -645,9 +736,10 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
               flush=True)
         check(err <= LIMITS["march"], "march disagrees with its plain version")
         del calls, args, kw, got, want, d
-    err, ms, plain_ms, bnd = timed["fly-through"]
+    err, ms, plain_ms, bnd, dev_ms = timed["fly-through"]
     results["march"].update(max_abs_err=max(t[0] for t in timed.values()),
-                            ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
+                            ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            library_ms=None, **bnd)
 
     # the frame against the all-plain path (frame index 0 in both)
     rp = make_renderer()
@@ -712,6 +804,7 @@ def dense_phase(torch, volume, cam, transform, clip, card, results):
     """Phase 7 (see the module docstring); adds K10a and K10b to
     ``results``."""
     from tbraymarcherplugin_tpu_torch.ops import synthetic
+    from tbraymarcherplugin_tpu_torch.ops import tf_rgba as K10
 
     def dense_step(vol, width, height, tf_unit="pallas",
                    dtype=torch.float32, **plan_kw):
@@ -763,6 +856,32 @@ def dense_phase(torch, volume, cam, transform, clip, card, results):
                    getattr(mod, fn + "_plain"), calls[name][:1], card,
                    results)
             results[name]["launches"] = launches[name]
+        # how K10b's histogram adds cluster on each block's inputs; the
+        # first block (timed above) is all outside the volume's footprint,
+        # so the block with the most hits is timed and checked as well
+        blocks = []
+        for args, kw in calls["tf_rgba_bwd"]:  # one step's blocks
+            stats = {}
+            K10.windowed_tf_rgba_bwd_plain(*args, **kw, stats=stats)
+            blocks.append(stats)
+        busy = max(range(len(blocks)), key=lambda b: blocks[b]["hit"])
+        row = results["tf_rgba_bwd"]
+        row["histogram"] = dict(first=blocks[0], busiest=blocks[busy],
+                                busiest_index=busy)
+        for label, b in (("first", 0), ("busiest", busy)):
+            st = blocks[b]
+            print(f"[kernel] tf_rgba_bwd, {label} block ({b} of "
+                  f"{len(blocks)}): hit share {st['hit']:.4f}, rounds per "
+                  f"warp of 32 elements mean {st['rounds_mean']:.2f}, max "
+                  f"{st['rounds_max']}, mean run of equal texels "
+                  f"{st['run_mean']:.2f}", flush=True)
+        busiest = {}
+        replay(torch, "tf_rgba_bwd", K10.windowed_tf_rgba_bwd,
+               K10.windowed_tf_rgba_bwd_plain,
+               calls["tf_rgba_bwd"][busy:busy + 1], card, busiest)
+        row["histogram"].update(
+            {k: busiest["tf_rgba_bwd"][k]
+             for k in ("ms", "device_ms", "max_abs_err")})
     del calls
 
     # the "pallas" unit against the "xla" unit (plain PyTorch) on the card,
@@ -887,18 +1006,23 @@ def gather_phase(torch, card, results):
     check(torch.equal(got, want), "gather_probe != tab[idx]")
     flat = idx.view(-1)
     ms = cuda_ms(torch, lambda: micro.gather_probe(tab, idx), 50)
+    dev_ms, _ = device_ms(torch, lambda: micro.gather_probe(tab, idx), 50)
     plain_ms = cuda_ms(torch, lambda: micro.gather_probe_plain(tab, idx), 50)
     library_ms = cuda_ms(torch, lambda: torch.index_select(tab, 0, flat), 50)
+    lib_dev_ms, _ = device_ms(torch, lambda: torch.index_select(tab, 0, flat),
+                              50)
     results["gather_probe"] = dict(
         launches=launches, max_abs_err=float((got - want).abs().max()), ms=ms,
-        plain_ms=plain_ms, library_ms=library_ms,
+        device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library_device_ms=lib_dev_ms,
         **bound(torch, "gather_probe", [((tab, idx), {}, got)]))
     n = idx.numel()
-    print(f"[gather] launches {launches} | exact | kernel {ms:.4f} ms "
-          f"({n / ms / 1e6:.2f} G gathers/s) | tab[idx.long()] "
-          f"{plain_ms:.4f} ms ({n / plain_ms / 1e6:.2f} G/s) | index_select "
-          f"{library_ms:.4f} ms ({n / library_ms / 1e6:.2f} G/s) | bound "
-          f"{results['gather_probe']['bound_ms']:.4f} ms | {card}", flush=True)
+    print(f"[gather] launches {launches} | exact | kernel {ms:.4f} ms back to "
+          f"back ({n / ms / 1e6:.2f} G gathers/s), {dev_ms:.4f} ms on the "
+          f"device | tab[idx.long()] {plain_ms:.4f} ms | index_select "
+          f"{library_ms:.4f} ms back to back, {lib_dev_ms:.4f} ms on the "
+          f"device | bound {results['gather_probe']['bound_ms']:.4f} ms | "
+          f"{card}", flush=True)
 
 
 def modes_phase(torch, volume, tf, windowing, light, cam, transform, card,
@@ -1005,13 +1129,15 @@ def modes_phase(torch, volume, tf, windowing, light, cam, transform, card,
         err = float((got - want).abs().max())
         check(math.isfinite(err), f"{name}: non-finite output")
         ms = cuda_ms(torch, lambda: K1.composite(*args, **ckw), 10)
+        dev_ms, _ = device_ms(torch, lambda: K1.composite(*args, **ckw), 10)
         plain_ms = cuda_ms(torch, lambda: K1.composite_plain(*args, **ckw),
                            1)
         bnd = composite_bound(torch, ckw, got, stats)
-        results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, **bnd)
+        results[name].update(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, library_ms=None, **bnd)
         print(f"[kernel] {name}: max_abs_err {err:.3e} (limit "
-              f"{LIMITS['composite']:.0e}) | kernel {ms:.3f} ms | plain "
+              f"{LIMITS['composite']:.0e}) | kernel {ms:.4f} ms back to "
+              f"back, {dev_ms:.4f} ms on the device | plain "
               f"{plain_ms:.3f} ms | bound {bnd['bound_ms']:.3f} ms "
               f"({bnd['bound_by']}; {stats} over {got[0].numel()} pixels, "
               f"K={ckw['k_real']}) | {card}", flush=True)
@@ -1122,15 +1248,17 @@ def main() -> int:
     cam = Camera.look_at(CAM_POS, 0.0, fov_degrees=FOV)
     results = {}
 
-    def record(name, got, want, ms, plain_ms, calls=None, bnd=None):
+    def record(name, got, want, ms, plain_ms, dev, calls=None, bnd=None):
         err = float((got.float() - want.float()).abs().max())
         check(math.isfinite(err), f"{name}: non-finite output")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=None,
+        results[name] = dict(max_abs_err=err, ms=ms, device_ms=dev[0],
+                             plain_ms=plain_ms, library_ms=None,
                              **(bnd or bound(torch, name, calls)))
         print(f"[kernel] {name}: max_abs_err {err:.3e} (limit "
-              f"{LIMITS[name]:.0e}) | kernel {ms:.3f} ms | plain "
-              f"{plain_ms:.3f} ms | bound {results[name]['bound_ms']:.3f} ms "
+              f"{LIMITS[name]:.0e}) | kernel {ms:.4f} ms back to back, "
+              f"{dev[0]:.4f} ms on the device ({dev[1]:g} device ops per "
+              f"call) | plain {plain_ms:.3f} ms | bound "
+              f"{results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) | {card}", flush=True)
         check(err <= LIMITS[name], f"{name} disagrees with its plain version")
 
@@ -1148,6 +1276,7 @@ def main() -> int:
     record("tf_alpha", got, want,
            cuda_ms(torch, lambda: K3.windowed_tf_alpha(*alpha_args), 20),
            cuda_ms(torch, lambda: K3.windowed_tf_alpha_plain(*alpha_args), 3),
+           device_ms(torch, lambda: K3.windowed_tf_alpha(*alpha_args), 20),
            [(alpha_args, {}, got)])
 
     opacity = Lt.occluder_opacity_volume(volume, tf, win, DIMS, fp.uvw_offset,
@@ -1167,6 +1296,7 @@ def main() -> int:
     record("light_scan", got, want,
            cuda_ms(torch, lambda: K4.propagate_face_scan(*scan_args), 5),
            cuda_ms(torch, lambda: K4.propagate_face_scan_plain(*scan_args), 2),
+           device_ms(torch, lambda: K4.propagate_face_scan(*scan_args), 5),
            [(scan_args, {}, got)])
 
     # K1 on the full frame's plan, bf16 streams, jitter on.
@@ -1186,6 +1316,7 @@ def main() -> int:
     record("composite", inter, want,
            cuda_ms(torch, lambda: K1.composite(**ops), 10),
            cuda_ms(torch, lambda: K1.composite_plain(**ops), 2),
+           device_ms(torch, lambda: K1.composite(**ops), 10),
            bnd=composite_bound(torch, ops, inter, stats))
     print(f"[kernel] composite plan: n1={plan.n1} n2={plan.n2} K={plan.k} "
           f"axis={plan.axis} swap_warp={plan.swap_warp} | work {stats}",
@@ -1206,7 +1337,26 @@ def main() -> int:
                for r, i in passes),
            sum(cuda_ms(torch, lambda r=r, i=i: K2.row_lerp_plain(r, i, 4), 3)
                for r, i in passes),
+           [sum(x) for x in zip(*(
+               device_ms(torch, lambda r=r, i=i: K2.row_lerp(r, i, 4), 20)
+               for r, i in passes))],
            [((r, i, 4), {}, a) for (r, i), (a, _) in zip(passes, err_in)])
+    # the same lerps as one PyTorch call each: the yardstick `library_ms`
+    lib = [row_lerp_library_args(torch, r, i, 4) for r, i in passes]
+    lib_err = max(float((torch.nn.functional.grid_sample(*a, **LERP_KW)
+                         .reshape(b.shape) - b).abs().max())
+                  for a, (_, b) in zip(lib, err_in))
+    lib_ms = sum(cuda_ms(torch, lambda a=a: torch.nn.functional.grid_sample(
+        *a, **LERP_KW), 20) for a in lib)
+    lib_dev = sum(device_ms(torch, lambda a=a: torch.nn.functional.grid_sample(
+        *a, **LERP_KW), 20)[0] for a in lib)
+    results["row_lerp"].update(library_ms=lib_ms, library_device_ms=lib_dev)
+    print(f"[kernel] row_lerp as grid_sample (border, align_corners): "
+          f"max_abs_err against the plain version {lib_err:.3e} (limit "
+          f"{LIBRARY_LERP_LIMIT:.0e}) | {lib_ms:.4f} ms back to back, "
+          f"{lib_dev:.4f} ms on the device, both passes | {card}", flush=True)
+    check(lib_err <= LIBRARY_LERP_LIMIT, "grid_sample != the row lerp")
+    del lib
     spread = float((idx1.amax(1) - idx1.amin(1)).max())
     print(f"[kernel] row_lerp pass-1 index spread per row: {spread:.1f} "
           f"texels (exact at any spread)", flush=True)

@@ -3,8 +3,10 @@
 All ``csrc/*.cu`` sources compile at first use with ``nvcc`` for
 ``sm_90a`` (Hopper), one ``nvcc`` per source, all started together, and
 link into one shared library with a plain C interface, loaded with
-``ctypes``. Pointers come from ``data_ptr()`` and the stream from
-``torch.cuda.current_stream().cuda_stream``. The library lands in
+``ctypes``. Pointers come from ``data_ptr()`` and the stream is the raw
+handle of PyTorch's current stream. Each C function is looked up and typed
+once, when the library loads; a launch then takes no lock and makes no
+lookup. The library lands in
 ``tbraymarcherplugin_tpu_torch/_build/`` under a name that hashes the
 sources and flags, so an edited source never loads a stale build.
 
@@ -53,11 +55,12 @@ SIGNATURES = {
     "tbr_sum_rows": [_P, _P, _I, _I, _P],
     "tbr_march": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_I, _P],
     "tbr_tf_rgba": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
-    "tbr_tf_rgba_bwd": [_P] * 8 + [ctypes.c_longlong] * 2 + [_I, _P],
+    "tbr_tf_rgba_bwd": [_P] * 11 + [ctypes.c_longlong] * 2 + [_I, _P],
     "tbr_gather_probe": [_P] * 3 + [ctypes.c_longlong, _I, _P],
 }
 
 _lib = None
+_fns: dict = {}  # name -> typed ctypes function, filled once by load()
 _lock = threading.Lock()
 
 
@@ -139,8 +142,11 @@ def build() -> tuple[Path, float]:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use; its C functions are typed
+    and kept in ``_fns`` before it is published."""
     global _lib
+    if _lib is not None:  # loaded: no lock
+        return _lib
     with _lock:
         if _lib is None:
             path, _ = build()
@@ -149,23 +155,31 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.tbr_error_string.argtypes = [ctypes.c_int]
-            lib.tbr_error_string.restype = ctypes.c_char_p
+                _fns[name] = fn
+            fn = lib.tbr_error_string
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_char_p
+            _fns["tbr_error_string"] = fn
             _lib = lib
     return _lib
 
 
 def launch(name: str, *args) -> None:
     """Call C entry point ``name``; raise if it reports a CUDA error."""
-    lib = load()
-    err = getattr(lib, name)(*args)
+    fn = _fns.get(name)
+    if fn is None:
+        load()
+        fn = _fns[name]
+    err = fn(*args)
     if err != 0:
-        msg = lib.tbr_error_string(err).decode()
+        msg = _fns["tbr_error_string"](err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on ``t``'s device (no Python
+    stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def sum_partials(partials: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,26 @@ import torch
 from . import _kernels
 from .tf_alpha import _assemble, _clip_grad, _taps, _window
 
-_BWD_BLOCKS = 132 * 4  # K10b's grid: its per-block partial rows
-_HIST = 2 * 4 * 256  # (tap, channel, texel)
+# K10b (csrc/tf_rgba_bwd.cu): one block of 1024 threads per SM, each thread
+# on runs of 4 elements; per block one row of partials (the 4 x 256
+# histogram, d center, d width)
+_BWD_PER_BLOCK = 1024 * 4
+_BWD_ROW = 4 * 256 + 2
+# K10b's count of finished blocks, one per stream (launches on one stream
+# never overlap): 0 between launches, the last block sets it back
+_COUNTERS: dict = {}
+
+
+def _counter(dev: torch.device, stream: int) -> torch.Tensor:
+    if stream not in _COUNTERS:
+        _COUNTERS[stream] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _COUNTERS[stream]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data does not start on 16 bytes (the
+    kernel's vector loads need that; a fresh allocation always does)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _step_field(step, values: torch.Tensor) -> torch.Tensor:
@@ -86,14 +104,48 @@ def windowed_tf_rgba(values: torch.Tensor, tf_table: torch.Tensor,
 windowed_tf_rgba.launches = 0
 
 
+def histogram_stats(i0: torch.Tensor, hit: torch.Tensor) -> dict:
+    """How the histogram adds of the flat texels ``i0`` (only where ``hit``)
+    cluster: ``hit``, the share of elements that add; ``rounds_mean`` and
+    ``rounds_max``, over warps of 32 consecutive elements (the last one
+    padded), the largest number of hitting elements on one texel (a warp
+    with no hit counts 0), which is the number of one-at-a-time add rounds
+    of a warp whose lanes take one element each; ``run_mean``, the mean
+    length of the runs of equal ``i0`` along the elements."""
+    i0, hit = i0.flatten(), hit.flatten()
+    n = i0.numel()
+    pad = -n % 32
+    lane = torch.arange(n + pad, device=i0.device)
+    # a miss gets a key of its own (below every texel), so it groups with
+    # nothing
+    key = torch.cat([torch.where(hit, i0, -1 - lane[:n] % 32),
+                     -1 - lane[n:] % 32]).view(-1, 32)
+    s = torch.sort(key, dim=1).values
+    pos = torch.arange(32, device=i0.device).expand_as(s)
+    start = torch.ones_like(s, dtype=torch.bool)
+    start[:, 1:] = s[:, 1:] != s[:, :-1]
+    first = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
+                         dim=1).values
+    group = torch.where(s >= 0, pos - first + 1, torch.zeros_like(pos))
+    rounds = group.amax(dim=1)
+    runs = 1 + int((i0[1:] != i0[:-1]).sum()) if n else 0
+    return dict(hit=float(hit.float().mean()) if n else 0.0,
+                rounds_mean=float(rounds.float().mean()) if n else 0.0,
+                rounds_max=int(rounds.max()) if n else 0,
+                run_mean=n / runs if n else 0.0)
+
+
 def windowed_tf_rgba_bwd_plain(values, tf_table, windowing_vec4, step, g,
-                               need_step: bool = True):
+                               need_step: bool = True, stats=None):
     """Cotangents of :func:`windowed_tf_rgba` for the (..., 4) output
     cotangent ``g``: (d values, d TF (256, 4), d window (4,) = (d center,
     d width, 0, 0), d step over the full values field, or None without
     ``need_step``); the kernel's arithmetic, one PyTorch operation per step.
     The colour channels take ``g * keep``, alpha ``g * keep`` times the step
-    correction's slope and XLA's clip subgradient (0.5 at an exact bound)."""
+    correction's slope and XLA's clip subgradient (0.5 at an exact bound).
+    A ``stats`` dict is filled with :func:`histogram_stats` of the
+    histogram's floor texels (an element hits when any channel's cotangent
+    is not zero)."""
     dev = values.device
     step = _step_field(step, values)
     _, width, _, _ = _window(windowing_vec4, dev)
@@ -127,6 +179,9 @@ def windowed_tf_rgba_bwd_plain(values, tf_table, windowing_vec4, step, g,
         h[0, c].index_add_(0, idx, gc * w_lo)
         h[1, c].index_add_(0, idx, gc * w_hi)
     dtf = _assemble(h[0], h[1]).T.contiguous()
+    if stats is not None:
+        hit = torch.stack([gc != 0.0 for gc in geff]).any(dim=0)
+        stats.update(histogram_stats(i0, hit))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return dval, dtf, torch.stack([dc, dw, zero, zero]), dstep
 
@@ -140,36 +195,35 @@ def windowed_tf_rgba_bwd(values, tf_table, windowing_vec4, step, g,
         return windowed_tf_rgba_bwd_plain(values, tf_table, windowing_vec4,
                                           step, g, need_step)
     dev = values.device
-    values = values.contiguous()
-    g = g.contiguous()
+    values = _aligned(values.contiguous())
+    g = _aligned(g.contiguous())
     tf_table = tf_table.contiguous()
     win = _kernels.window_tensor(windowing_vec4, dev).contiguous()
-    step = _kernel_step(_step_field(step, values), values)
+    step = _aligned(_kernel_step(_step_field(step, values), values))
     for name, t in (("values", values), ("g", g), ("tf_table", tf_table),
                     ("step", step)):
         _kernels.check(t, name, torch.float32, dev)
     if tuple(tf_table.shape) != (256, 4) or g.shape != values.shape + (4,):
         raise ValueError("tf_table must be (256, 4) and g shaped (*values, 4)")
     n = values.numel()
-    blocks = min(-(-n // 128), _BWD_BLOCKS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(-(-n // _BWD_PER_BLOCK), sms))
     dval = torch.empty_like(values)
     dstep = torch.empty_like(values) if need_step else None
-    partials = torch.empty((max(blocks, 1), _HIST + 2), dtype=torch.float32,
+    partials = torch.empty((blocks, _BWD_ROW), dtype=torch.float32,
                            device=dev)
-    if blocks == 0:
-        partials.zero_()
+    dtf = torch.empty((256, 4), dtype=torch.float32, device=dev)
+    dwin = torch.empty(4, dtype=torch.float32, device=dev)
+    stream = _kernels.stream_of(values)
     _kernels.launch(
         "tbr_tf_rgba_bwd", values.data_ptr(), tf_table.data_ptr(),
         win.data_ptr(), step.data_ptr(), g.data_ptr(), dval.data_ptr(),
-        dstep.data_ptr() if need_step else None, partials.data_ptr(), n,
-        step.numel(), blocks, _kernels.stream_of(values),
+        dstep.data_ptr() if need_step else None, partials.data_ptr(),
+        _counter(dev, stream).data_ptr(), dtf.data_ptr(), dwin.data_ptr(), n,
+        step.numel(), blocks, stream,
     )
-    sums = _kernels.sum_partials(partials)
     windowed_tf_rgba_bwd.launches += 1
-    hist = sums[:_HIST].view(2, 4, 256)
-    dtf = _assemble(hist[0], hist[1]).T.contiguous()
-    zero = torch.zeros(2, dtype=torch.float32, device=dev)
-    return dval, dtf, torch.cat([sums[_HIST:_HIST + 2], zero]), dstep
+    return dval, dtf, dwin, dstep
 
 
 windowed_tf_rgba_bwd.launches = 0

@@ -492,6 +492,94 @@ def test_tf_rgba_bwd_kernel_matches_plain(cuda, gen, win):
             assert got[3] is None
 
 
+def _clustered_values(case, gen, shape):
+    """K10b's values where the histogram adds cluster as on the dense path
+    (window (0.45, 0.7), cutoffs on): every element on one texel, runs of
+    2-64 equal values along the rows, a smooth ramp across the window, a
+    block all below the lower cutoff, or independent uniform values."""
+    n = int(np.prod(shape))
+    if case == "one_texel":
+        vals = np.full(n, 0.6, np.float32)
+    elif case == "runs":
+        lengths = gen.integers(2, 65, n)
+        vals = np.repeat(gen.random(n, dtype=np.float32) * 1.4 - 0.2,
+                         lengths)[:n]
+    elif case == "ramp":
+        vals = np.broadcast_to(np.linspace(0.05, 0.85, shape[-1],
+                                           dtype=np.float32), shape)
+    elif case == "all_cut":
+        vals = gen.random(n, dtype=np.float32) * 0.09
+    else:
+        vals = gen.random(n, dtype=np.float32) * 1.4 - 0.2
+    return np.ascontiguousarray(vals, np.float32).reshape(shape)
+
+
+@pytest.mark.parametrize("shape", [(8, 96, 160), (3, 37, 41)])
+@pytest.mark.parametrize("case", ["one_texel", "runs", "ramp", "all_cut",
+                                  "random"])
+def test_tf_rgba_bwd_kernel_on_clustered_texels(cuda, gen, shape, case):
+    """K10b where the old one-element-per-lane design serialised (a whole
+    warp on one texel, long runs, a ramp), a block the window cuts whole,
+    and random values; the (n1, n2) step field of the dense path, its
+    length a multiple of 4 or not, and an element count that is not a
+    multiple of a thread's run of 4 (the second shape)."""
+    vals = torch.from_numpy(_clustered_values(case, gen, shape)).to(cuda)
+    step = torch.from_numpy(0.5 + gen.random(shape[1:], dtype=np.float32)
+                            ).to(cuda)
+    g = torch.from_numpy(gen.standard_normal(shape + (4,)).astype(
+        np.float32)).to(cuda)
+    tf = T.tf_ct_bone(device=cuda)
+    w = torch.tensor(WINDOWS[0], device=cuda)
+    stats = {}
+    PK10.windowed_tf_rgba_bwd_plain(vals, tf, w, step, g, stats=stats)
+    if case == "one_texel":
+        assert stats["hit"] == 1.0 and stats["rounds_max"] == 32
+    if case == "all_cut":
+        assert stats["hit"] == 0.0
+    for need_step in (True, False):
+        before = PK10.windowed_tf_rgba_bwd.launches
+        got = PK10.windowed_tf_rgba_bwd(vals, tf, w, step, g, need_step)
+        assert PK10.windowed_tf_rgba_bwd.launches == before + 1
+        assert len(got) == 4 and got[1].shape == (256, 4)
+        assert got[2].shape == (4,) and got[0].shape == shape
+        again = PK10.windowed_tf_rgba_bwd(vals, tf, w, step, g, need_step)
+        want = PK10.windowed_tf_rgba_bwd_plain(vals, tf, w, step, g,
+                                               need_step)
+        torch.cuda.synchronize()
+        assert _same_bits(got[:3], again[:3])  # fixed-order reductions
+        # expf/logf ulps per element; sums in another order
+        _close(got[0], want[0], 1e-5, 1e-6, "dval")
+        _close(got[1], want[1], 1e-4, 1e-5, "dtf")
+        _close(got[2], want[2], 1e-4, 1e-5, "dwin")
+        if case == "all_cut":
+            assert not got[1].any() and not got[2].any()
+        if need_step:
+            assert torch.equal(got[3], again[3])
+            _close(got[3], want[3], 1e-5, 1e-6, "dstep")
+        else:
+            assert got[3] is None
+
+
+def test_tf_rgba_bwd_kernel_on_unaligned_views(cuda, gen):
+    """Inputs whose data does not start on 16 bytes (views one element into
+    their storage) give the same cotangents as aligned copies."""
+    shape = (4, 40, 52)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(_clustered_values("runs", gen, (n + 1,))).to(cuda)
+    gflat = torch.from_numpy(gen.standard_normal(4 * n + 4).astype(
+        np.float32)).to(cuda)
+    vals = flat[1:].view(shape)
+    g = gflat[1:4 * n + 1].view(shape + (4,))
+    assert vals.data_ptr() % 16 and g.data_ptr() % 16
+    tf = T.tf_ct_bone(device=cuda)
+    w = torch.tensor(WINDOWS[0], device=cuda)
+    got = PK10.windowed_tf_rgba_bwd(vals, tf, w, 0.9, g)
+    want = PK10.windowed_tf_rgba_bwd(vals.clone(), tf, w, 0.9, g.clone())
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_dense_composite_kernels_match_plain(cuda):
     """The dense fwd+bwd at 32^3 through K10a/K10b (the "pallas" TF unit)
     against the plain versions on the card."""
@@ -544,3 +632,22 @@ def test_gather_probe_kernel_matches_plain(cuda):
     want = PK11.gather_probe_plain(tab, idx)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n, offset", [(1, 0), (7, 0), (4099, 0),
+                                       (256 * 8 * 3 + 5, 0), (4099, 1),
+                                       (1000003, 0), (1000003, 3)])
+def test_gather_probe_kernel_ragged_and_clamped(cuda, gen, n, offset):
+    """K11 on lengths that are no multiple of its 16-byte vectors or of its
+    block, on index arrays that do not start on 16 bytes, and on indices
+    outside the table, which it clamps to the table's ends."""
+    tab = torch.from_numpy(gen.standard_normal(PK11.TABLE).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(gen.integers(-5000, PK11.TABLE + 5000, n + offset,
+                                        dtype=np.int32)).to(cuda)[offset:]
+    before = PK11.gather_probe.launches
+    got = PK11.gather_probe(tab, idx)
+    assert PK11.gather_probe.launches == before + 1
+    want = tab[idx.long().clamp(0, PK11.TABLE - 1)]
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and torch.equal(got, want)

@@ -10,6 +10,8 @@ bound for its kernel against XLA); the cotangents at the JAX package's
 limits for its unit (`tests/test_pallas_lighting.py`: rtol 1e-4, atol 1e-5,
 1e-4 for the window), the sums running in another order."""
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,3 +142,55 @@ def test_xla_unit_tf_lookup_adjoint_is_indexings(rng):
     finally:
         torch.use_deterministic_algorithms(was)
     assert torch.equal(tf.grad, d_got)
+
+
+def _numpy_histogram_stats(vals, win, hit):
+    """The counts of `tf_rgba.histogram_stats`, one element at a time."""
+    center, width = np.float32(win[0]), np.float32(win[1])
+    tf_pos = (vals.reshape(-1) - center + width * np.float32(0.5)) / width
+    x = tf_pos * np.float32(256.0) - np.float32(0.5)
+    i0 = np.clip(np.floor(x), 0, 255).astype(np.int64)
+    hit = hit.reshape(-1)
+    rounds = []
+    for w in range(0, len(i0), 32):
+        groups = collections.Counter(int(t) for t, h in zip(i0[w:w + 32],
+                                                            hit[w:w + 32])
+                                     if h)
+        rounds.append(max(groups.values(), default=0))
+    runs = 1 + sum(int(a != b) for a, b in zip(i0[1:], i0[:-1]))
+    return dict(hit=float(hit.mean()), rounds_mean=float(np.mean(rounds)),
+                rounds_max=max(rounds), run_mean=len(i0) / runs)
+
+
+@pytest.mark.parametrize("win", WINDOWS)
+def test_tf_rgba_bwd_plain_stats_count_hits_rounds_and_runs(rng, win):
+    """`windowed_tf_rgba_bwd_plain(stats=)` against a count in numpy, on
+    runs of 1-40 equal values (past both cutoffs of the first window, whose
+    elements then add nothing) with nonzero cotangents; the cotangents are
+    the same with and without ``stats``."""
+    shape = (3, 50, 37)
+    n = int(np.prod(shape))
+    lengths = rng.integers(1, 41, n)
+    vals = np.repeat(rng.random(n, dtype=np.float32) * 1.4 - 0.2,
+                     lengths)[:n].reshape(shape)
+    g = rng.standard_normal(shape + (4,)).astype(np.float32)
+    g[g == 0.0] = np.float32(1.0)
+    tf = torch.from_numpy(np.array(JT.tf_ct_bone()))
+    args = (torch.from_numpy(vals), tf, torch.tensor(win),
+            torch.from_numpy(0.5 + rng.random(shape[1:], dtype=np.float32)),
+            torch.from_numpy(g))
+    stats = {}
+    got = PK10.windowed_tf_rgba_bwd_plain(*args, stats=stats)
+    want = PK10.windowed_tf_rgba_bwd_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # a colour channel's cotangent is g * keep: an element adds unless a
+    # cutoff drops it
+    tf_pos = (vals - np.float32(win[0]) + np.float32(win[1]) * np.float32(0.5)
+              ) / np.float32(win[1])
+    cut = (((tf_pos < 0) & (win[2] > 0)) | ((tf_pos > 1) & (win[3] > 0)))
+    ref = _numpy_histogram_stats(vals, win, ~cut)
+    assert stats["rounds_max"] == ref["rounds_max"]
+    for key in ("hit", "rounds_mean", "run_mean"):
+        assert stats[key] == pytest.approx(ref[key], rel=1e-6), key
+    assert 0.0 < stats["hit"] <= 1.0 and stats["run_mean"] > 2.0
