@@ -24,10 +24,13 @@ Phases, one line each:
      `loss.backward()` steps of the L2 loss against the frame at window
      (0.5, 0.8), at window centers 0.55, 0.56, 0.57; every leaf's gradient
      must be finite and nonzero, (loss, sum |dTF|) must differ from step to
-     step and all eight kernels' counters must rise; then each backward
+     step and all eight kernels' counters must rise, with the third step's
+     peak device memory; then each backward
      kernel K5-K8 against its plain version on the inputs the path gave it
-     (and against itself: two launches must give the same bits),
-     the gradients against the all-plain path on the card, and a 24^3
+     (and against itself: two launches must give the same bits), how K5's
+     histogram adds cluster there (the plain version's `stats=`: hit
+     share, add rounds per warp of 32 pixels and plane, runs of equal
+     texels), the gradients against the all-plain path on the card, and a 24^3
      fwd+bwd on the card against the CPU;
   6. march: four fly-through frames with the camera inside the volume
      (same scene, jitter on), where shear-warp has no plan and `Renderer`
@@ -187,17 +190,21 @@ OPS_PER_ELEMENT = {
 # (6 + 42), the RGB lerps and light products (12) and the composite with
 # the termination test (13): 140 more, 155 in all.
 MARCH_STEP_OPS, MARCH_SAMPLE_OPS = 15, 140
-# K1's float operations (csrc/composite.cu, counted as K9's). Every
-# (pixel, plane) a thread visits (occupied chunks, up to its termination):
-# the coordinates (2 mul, 2 add), with jitter the next plane's (4) and
-# three lerps (9), and the mask (4 compares, mul, add, compare): 24, one
-# more with a λ ceiling. A sample that passes the mask: the value's lerp
-# (3), the window and the cut or, in intensity mode, the clamp (5): 8. A
-# sample shaded through the TF (lit and unlit, not cut): the taps (9), four
-# lerps (12), the alpha correction (8), the weight (2), the RGB products
-# and sums (9), alpha and the termination test (3): 43, and the light's
-# lerp (3) in lit mode. The plain version counts the three kinds of work
-# (`composite_plain(..., stats=)`).
+# K1's float operations (csrc/composite.cu, counted as K9's). A (pixel,
+# plane) visit: the coordinates (2 mul, 2 add), with jitter the next
+# plane's (4) and three lerps (9), and the mask (4 compares, mul, add,
+# compare): 24, one more with a λ ceiling. A sample that passes the mask:
+# the value's lerp (3), the window and the cut or, in intensity mode, the
+# clamp (5): 8. A sample shaded through the TF (lit and unlit, not cut):
+# the taps (9), four lerps (12), the alpha correction (8), the weight (2),
+# the RGB products and sums (9), alpha and the termination test (3): 43,
+# and the light's lerp (3) in lit mode. The plain version counts the
+# three kinds of work (`composite_plain(..., stats=)`). The bound counts a
+# visit's operations for the samples that pass the mask only: a visit
+# that geometry excludes is work a design with per-tile plane intervals
+# does not do. The first design's bound charged every visit of an
+# occupied chunk up to termination (`steps`); it is printed beside the
+# bound (`old_bound_ms`).
 COMPOSITE_STEP_OPS, COMPOSITE_SAMPLE_OPS = 24, 8
 COMPOSITE_SHADE_OPS = {"lit": 46, "unlit": 43, "intensity": 0}
 # Phase 10: the opaque plane behind which the lit depth frame's samples are
@@ -385,19 +392,22 @@ def bound(torch, name, calls, ops=None):
     return _bound(nbytes, ops)
 
 
-def composite_ops(kw, stats):
+def composite_ops(kw, stats, visits="samples"):
     """K1's float operations on the call ``kw`` whose plain run filled
-    ``stats`` (see COMPOSITE_STEP_OPS)."""
+    ``stats`` (see COMPOSITE_STEP_OPS): a visit's for each of ``stats``'s
+    ``visits``, the samples that pass the mask (``"steps"``: the first
+    design's count, every visit of an occupied chunk)."""
     step = COMPOSITE_STEP_OPS + (kw.get("depth_lam") is not None)
-    return (stats["steps"] * step + stats["samples"] * COMPOSITE_SAMPLE_OPS
+    return (stats[visits] * step + stats["samples"] * COMPOSITE_SAMPLE_OPS
             + stats["shaded"] * COMPOSITE_SHADE_OPS[kw.get("mode", "lit")])
 
 
 def composite_bound(torch, kw, out, stats):
-    """``bound_ms``/``bound_by`` of one K1 call: each plane value a thread
-    reads (the samples that pass the mask; the light's only where they are
-    shaded, lit mode), each per-pixel field and small operand once, the
-    output once; operations from ``composite_ops``."""
+    """``bound_ms``/``bound_by`` of one K1 call, and ``old_bound_ms``, the
+    first design's: each plane value a thread reads (the samples that pass
+    the mask; the light's only where they are shaded, lit mode), each
+    per-pixel field and small operand once, the output once; operations
+    from ``composite_ops``."""
     planes = ("W", "L")
     nbytes = stats["samples"] * kw["W"].element_size()
     if kw.get("mode", "lit") == "lit":
@@ -405,7 +415,9 @@ def composite_bound(torch, kw, out, stats):
     nbytes += sum(t.numel() * t.element_size() for k, t in kw.items()
                   if isinstance(t, torch.Tensor) and k not in planes)
     nbytes += out.numel() * out.element_size() + kw["pa"].nbytes
-    return _bound(nbytes, composite_ops(kw, stats))
+    old = _bound(nbytes, composite_ops(kw, stats, "steps"))
+    return dict(_bound(nbytes, composite_ops(kw, stats)),
+                old_bound_ms=old["bound_ms"])
 
 
 def kernel_table():
@@ -554,7 +566,7 @@ def make_fwd_bwd_step(torch, vol, cam, transform, clip, width, height,
 
 def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     """Phase 5 (see the module docstring); adds K5-K8 to ``results``."""
-    from tbraymarcherplugin_tpu_torch.ops import synthetic
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad, synthetic
 
     def make_step(vol, width, height, dtype=None, **plan_kw):
         """An L2 fwd+bwd step of the lit frame of ``vol`` through the fused
@@ -571,12 +583,18 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
         getattr(mod, fn).launches = 0
     outs, step_ms = [], []
     for c in FWD_BWD_CENTERS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # the last step's peak is kept
+        before = torch.cuda.memory_allocated()
         out, ms = host_ms(torch, lambda c=c: step(c))
         outs.append(out)
         step_ms.append(ms)
+    peak = (torch.cuda.max_memory_allocated() / 2**20, before / 2**20)
     launches = {name: getattr(mod, fn).launches for name, mod, fn in table}
     print(f"[fwd+bwd] launches {launches} | ms per step (host clock) "
-          f"{', '.join(f'{m:.2f}' for m in step_ms)} | {card}", flush=True)
+          f"{', '.join(f'{m:.2f}' for m in step_ms)} | peak device memory "
+          f"of the third step {peak[0]:.1f} MiB ({peak[1]:.1f} MiB "
+          f"allocated before it) | {card}", flush=True)
     for name, _, _ in table:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the fwd+bwd path")
@@ -604,7 +622,19 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
             replay(torch, name, getattr(mod, fn),
                        getattr(mod, fn + "_plain"), used, card, results)
             results[name]["launches"] = launches[name]
-    del calls
+        # how K5's histogram adds cluster on these inputs
+        args, kw = calls["composite_bwd"][0]
+        sums = {}
+        shearwarp_grad.composite_bwd_plain(*args, **kw, stats=sums)
+        st = shearwarp_grad.clustering_summary(sums)
+        results["composite_bwd"].update(histogram=st,
+                                        fused_step_peak_mib=peak[0])
+        print(f"[kernel] composite_bwd adds: hit share {st['hit']:.4f} of "
+              f"{sums['pixels']} (pixel, plane) pairs, rounds per warp of 32 "
+              f"pixels and plane with a hit mean {st['rounds_mean']:.2f} "
+              f"({sums['warps_hit']} such), max {st['rounds_max']}, mean run "
+              f"of equal texels along a row {st['run_mean']:.2f}", flush=True)
+    del calls, args, kw
 
     # The gradients against the all-plain path on the card.
     with all_plain():
@@ -1138,8 +1168,10 @@ def modes_phase(torch, volume, tf, windowing, light, cam, transform, card,
         print(f"[kernel] {name}: max_abs_err {err:.3e} (limit "
               f"{LIMITS['composite']:.0e}) | kernel {ms:.4f} ms back to "
               f"back, {dev_ms:.4f} ms on the device | plain "
-              f"{plain_ms:.3f} ms | bound {bnd['bound_ms']:.3f} ms "
-              f"({bnd['bound_by']}; {stats} over {got[0].numel()} pixels, "
+              f"{plain_ms:.3f} ms | bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}; the first design's "
+              f"{bnd['old_bound_ms']:.4f} ms; {stats} over "
+              f"{got[0].numel()} pixels, "
               f"K={ckw['k_real']}) | {card}", flush=True)
         check(err <= LIMITS["composite"],
               f"{name} disagrees with its plain version")
@@ -1318,9 +1350,16 @@ def main() -> int:
            cuda_ms(torch, lambda: K1.composite_plain(**ops), 2),
            device_ms(torch, lambda: K1.composite(**ops), 10),
            bnd=composite_bound(torch, ops, inter, stats))
+    tiles = K1.tile_plane_bounds(ops["pa"], plan.n1, plan.n2, ops["d1"],
+                                 ops["d2"], plan.k, jitter=True)
+    pairs = int(np.maximum(tiles[..., 1] - tiles[..., 0], 0).sum()
+                * K1.TILE[0] * K1.TILE[1])
     print(f"[kernel] composite plan: n1={plan.n1} n2={plan.n2} K={plan.k} "
-          f"axis={plan.axis} swap_warp={plan.swap_warp} | work {stats}",
-          flush=True)
+          f"axis={plan.axis} swap_warp={plan.swap_warp} | work {stats} | "
+          f"(pixel, plane) pairs in the tiles' intervals {pairs} of "
+          f"{plan.n1 * plan.n2 * plan.k} | bound "
+          f"{results['composite']['bound_ms']:.4f} ms, the first design's "
+          f"{results['composite']['old_bound_ms']:.4f} ms", flush=True)
 
     # K2: both warp passes of the frame.
     p1r, p2r, pdr, Wd, Hd = SW.warp_rows(plan, WIDTH, HEIGHT)

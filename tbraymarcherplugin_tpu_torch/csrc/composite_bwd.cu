@@ -8,52 +8,162 @@
 //   d a_k = T_{k-1} * (P_k - U_k + g_alpha * V_k)
 //   U <- a P + (1 - a) U,   V <- (1 - a) V      (k descending, U = 0, V = 1)
 // Division-free, so exact even where a == 1. Sweep 1 (k ascending) reruns
-// the forward recurrence and stores T_{k-1}; sweep 2 (k descending) emits
-// dW (through the TF slopes, times 256 / width), dL = T a g_rgb.c, the
-// d TF histogram (both lerp taps of all four channels) and the d center /
-// d width sums. Masks, cutoffs and the 0.95 snap are constants, and the
-// clip of the TF alpha takes XLA's 0.5 subgradient at exact ties, as the
-// JAX package's autodiff oracle does. dW and dL are written in the stream
-// type (bf16 on the main path), as the JAX package rounds them.
+// the forward recurrence up to each pixel's termination; sweep 2 (k
+// descending) emits dW (through the TF slopes, times 256 / width), dL =
+// T a g_rgb.c, the d TF histogram (both lerp taps of all four channels)
+// and the d center / d width sums. Masks, cutoffs and the 0.95 snap are
+// constants, and the clip of the TF alpha takes XLA's 0.5 subgradient at
+// exact ties, as the JAX package's autodiff oracle does. dW and dL are
+// written in the stream type (bf16 on the main path), as the JAX package
+// rounds them.
 //
-// Bound on the H100: device memory. At 1080p and 150 planes W and L are
-// about 0.5 GB each in bf16; the kernel reads W in both sweeps and L in the
-// second, writes dW and dL (the same size) and writes and reads the T
-// scratch (f32, about 1 GB), each only up to the pixel's termination (the
-// zeros past it are written, not computed). Design: one
-// thread per pixel with T in a (K, n1, n2) f32 global scratch, n2 the fast
-// axis so every plane access coalesces; a thread stops at its pixel's
-// termination and skips planes outside the cube or the clip plane. The
-// TPU's one-hot MXU histogram becomes a warp-private (8 x 256)-bin
-// histogram in shared memory with lane-ordered adds (common.cuh), and the
-// blocks walk pixel tiles in a fixed order, so each block's partial row is
-// the same on every run; reduce.cu sums the rows in block order.
+// Bound on the H100: device memory. At 1080p and 150 planes W, L, dW and
+// dL are about 0.5 GB each in bf16; the kernel reads W and L up to each
+// pixel's termination and writes dW and dL whole (zeros past
+// termination). The first Hopper design (one thread per pixel, one 2-byte
+// load per plane behind the previous plane's branch, T_{k-1} stored in a
+// (K, n1, n2) float32 scratch of 1 GB between the sweeps, one warp-wide
+// ordered add per plane whose rounds grew with the lanes on one texel) was
+// bound by its instructions and their latency, not by the scratch. This
+// one follows composite_tile.cuh (a warp per tile of 32 pixels of a row,
+// only the planes of the tile's geometric interval, groups of 8 planes
+// staged through shared memory), and:
+// - keeps no T: sweep 1 writes alpha at the start of each group of 8
+//   planes into a (ceil(K / 8), n1, n2) float32 scratch (an eighth of the
+//   old one); sweep 2 walks the groups down, and for each restages the
+//   group's W and L, recomputes T_{k-1} forward from the group's
+//   checkpoint with sweep 1's operations (so T has the bits the old
+//   scratch held) into shared memory, keeps the samples' window positions
+//   for the walk down, and walks the group backward;
+// - writes the zero cotangents outside the tile's visited planes, reading
+//   nothing there, with 16-byte stores where the rows allow;
+// - adds to the histogram by texel group: the lanes on one texel sum
+//   their values in a fixed tree of shuffles (log2 of the largest group
+//   steps, not one round per lane), and the group's lowest lane adds the
+//   sum, every floor tap before the frac taps. On the bench's fwd+bwd
+//   inputs where a warp adds at a plane, 6.7 lanes on average share a
+//   texel, while runs of equal texels along a row are 1.5 pixels long
+//   (texels alternate), so merging neighbours' values in registers, as
+//   K10b does, saves little.
+// What bounds it now: its instructions, the forward recurrence twice
+// (sweep 1 and the recompute) with logf and expf per sample, the backward
+// body and the adds.
+// Each warp keeps a private 4 x 257 histogram (the frac tap at the next
+// texel; the 257th bin only ever takes zeros). Each block sums its warps'
+// histograms in warp order into one row of partials, and reduce.cu sums
+// the rows in a fixed order: the same bits on every run.
 
-#include "common.cuh"
+#include "composite_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+using namespace tbr_tile;
+
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int HIST = 8 * 256;  // [tap(2) x channel(4)][texel]
-constexpr int ROW = HIST + 2;  // + d center, d width
+constexpr int BINS = 257;        // texels, and one past the top
+constexpr int WHIST = 4 * BINS;  // one warp's histogram: [channel][bin]
+constexpr int NT = 4 * 256;      // d TF in a row: [channel][texel]
+constexpr int ROW = NT + 2;      // + d center, d width
+
+// wh[c * BINS + bin] += v[c] and wh[c * BINS + bin + 1] += v[4 + c] for
+// every lane with `add`. Lanes on one bin first sum their values in a
+// fixed tree by rank (rank r takes rank r + d for d = 1, 2, 4, ...), then
+// the rank-0 lane adds the sum: floor taps, then frac taps. Every lane of
+// the warp calls it.
+__device__ __forceinline__ void add_groups(float* wh, int bin, float (&v)[8],
+                                           bool add) {
+  if (__ballot_sync(FULL, add) == 0u) return;  // warp-uniform
+  const unsigned lane = threadIdx.x & 31u;
+  // a lane that adds nothing gets a key of its own
+  const int key = add ? bin : -1 - (int)lane;
+  const unsigned grp = __match_any_sync(FULL, key);
+  const int size = __popc(grp);
+  const int rank = __popc(grp & ((1u << lane) - 1u));
+  const int most = (int)__reduce_max_sync(FULL, (unsigned)size);
+  for (int d = 1; d < most; d <<= 1) {  // warp-uniform
+    const unsigned src = __fns(grp, lane, d + 1);  // the lane of rank + d
+    const int from = src < 32u ? (int)src : (int)lane;
+    const bool take = (rank & (2 * d - 1)) == 0 && rank + d < size;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float o = __shfl_sync(FULL, v[c], from);
+      if (take) v[c] = __fadd_rn(v[c], o);
+    }
+  }
+  const bool lead = add && rank == 0;
+  if (lead) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float* h = wh + c * BINS + bin;
+      *h = __fadd_rn(*h, v[c]);
+    }
+  }
+  __syncwarp();
+  if (lead) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float* h = wh + c * BINS + bin + 1;
+      *h = __fadd_rn(*h, v[4 + c]);
+    }
+  }
+  __syncwarp();
+}
+
+// dW and dL = 0 at planes [0, k_a) and [k_b, kp) of one tile's 32
+// pixels of row i (tile column tc). `vec`: the tile is whole and its rows
+// 16-byte aligned, so each lane stores 16 bytes, a warp-wide store
+// covering several planes; otherwise each lane stores its own pixel.
+template <typename T>
+__device__ __forceinline__ void zero_fill(T* __restrict__ dW,
+                                          T* __restrict__ dL, size_t plane,
+                                          int i, int n2, int tc, int lane,
+                                          int k_a, int k_b, int kp,
+                                          bool vec) {
+  const size_t row = (size_t)i * n2 + (size_t)tc * TILE;
+  if (vec) {
+    constexpr int CHUNKS = TILE * (int)sizeof(T) / 16;  // per plane
+    constexpr int PLANES = 32 / CHUNKS;                 // per store
+    const int c = lane % CHUNKS;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int k = lane / CHUNKS; k < kp; k += PLANES) {
+      if (k >= k_a && k < k_b) continue;
+      const size_t at = (size_t)k * plane + row;
+      __stcs(reinterpret_cast<uint4*>(dW + at) + c, z);
+      __stcs(reinterpret_cast<uint4*>(dL + at) + c, z);
+    }
+    return;
+  }
+  if (tc * TILE + lane >= n2) return;
+  const T zero = tbr_from_f32<T>(0.0f);
+  for (int k = 0; k < kp; ++k) {
+    if (k == k_a) k = k_b;
+    if (k >= kp) break;
+    dW[(size_t)k * plane + row + lane] = zero;
+    dL[(size_t)k * plane + row + lane] = zero;
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) composite_bwd_kernel(
     const T* __restrict__ W, const T* __restrict__ L,
     const float* __restrict__ tf, const float* __restrict__ pa,
-    const float* __restrict__ e1, const float* __restrict__ sw,
-    const float* __restrict__ win, const float* __restrict__ g,
-    float* __restrict__ tsto, T* __restrict__ dW, T* __restrict__ dL,
-    float* __restrict__ partials, int n1, int n2, int k_real, int kp, int P,
-    float e0, float et, float d1f, float d2f) {
+    const int2* __restrict__ bounds, const float* __restrict__ e1,
+    const float* __restrict__ sw, const float* __restrict__ win,
+    const float* __restrict__ g, float* __restrict__ ckpt,
+    T* __restrict__ dW, T* __restrict__ dL, float* __restrict__ partials,
+    int n1, int n2, int k_real, int kp, int P, int zvec_i, float e0,
+    float et, float d1f, float d2f) {
   extern __shared__ __align__(16) float smem[];
   float4* tf4 = reinterpret_cast<float4*>(smem);  // 256 texels
-  float* hist = smem + 1024;                      // WARPS x HIST
-  float* red = hist + WARPS * HIST;               // 2 x THREADS
-  float* spa = red + 2 * THREADS;                 // (5, P)
+  float* hist = smem + 1024;                      // WARPS x WHIST
+  float* stage_w = hist + WARPS * WHIST;          // GROUP x THREADS
+  float* stage_l = stage_w + GROUP * THREADS;
+  float* stage_t = stage_l + GROUP * THREADS;
+  float* spa = stage_t + GROUP * THREADS;         // (5, P)
+  __shared__ float red[2][WARPS];
   for (int t = threadIdx.x; t < 1024; t += THREADS) smem[t] = tf[t];
-  for (int t = threadIdx.x; t < WARPS * HIST; t += THREADS) hist[t] = 0.0f;
+  for (int t = threadIdx.x; t < WARPS * WHIST; t += THREADS) hist[t] = 0.0f;
   for (int t = threadIdx.x; t < 5 * P; t += THREADS) spa[t] = pa[t];
   __syncthreads();
 
@@ -68,79 +178,127 @@ __global__ void __launch_bounds__(THREADS) composite_bwd_kernel(
   const float s256w = __fdiv_rn(256.0f, width);
   const float neg256w = __fdiv_rn(-256.0f, width);
   const float hi1 = __fsub_rn(d1f, 0.5f), hi2 = __fsub_rn(d2f, 0.5f);
-  float* wh = hist + (threadIdx.x >> 5) * HIST;
-  const long long plane = (long long)n1 * n2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wh = hist + warp * WHIST;
+  // this thread's slots: plane s of the staged group at [s * THREADS]
+  float* my_w = stage_w + threadIdx.x;
+  float* my_l = stage_l + threadIdx.x;
+  float* my_t = stage_t + threadIdx.x;
+  const size_t plane = (size_t)n1 * n2;
+  const int tpr = (n2 + TILE - 1) / TILE;
+  const int n_tiles = n1 * tpr;
   float acc_c = 0.0f, acc_w = 0.0f;
+  const bool zvec = zvec_i != 0;
 
-  for (long long base = (long long)blockIdx.x * THREADS; base < plane;
-       base += (long long)gridDim.x * THREADS) {  // block-uniform trip count
-    const long long p = base + threadIdx.x;
-    const bool valid = p < plane;
-    const float gi = valid ? (float)(p / n2) : 0.0f;
-    const float gj = valid ? (float)(p % n2) : 0.0f;
-    const float e1v = valid ? e1[p] : 0.0f;
-    const float swv = valid ? sw[p] : 0.0f;
+  for (int tile = blockIdx.x * WARPS + warp; tile < n_tiles;
+       tile += gridDim.x * WARPS) {  // warp-uniform
+    const int i = tile / tpr;
+    const int j = (tile - i * tpr) * TILE + lane;
+    const bool valid = j < n2;
+    const int2 kb = bounds[tile];
+    const size_t pix = (size_t)i * n2 + (valid ? j : 0);
+    const float gi = (float)i, gj = (float)j;
+    const float e1v = valid ? e1[pix] : 0.0f;
+    const float swv = valid ? sw[pix] : 0.0f;
     auto inside = [&](int k) {
       const float v1 = __fadd_rn(a1[k], __fmul_rn(b1[k], gi));
       const float v2 = __fadd_rn(a2[k], __fmul_rn(b2[k], gj));
-      return v1 >= -0.5f && v1 <= hi1 && v2 >= -0.5f && v2 <= hi2 &&
+      return in_cube(v1, v2, hi1, hi2) &&
              __fadd_rn(e0, __fmul_rn(lam[k], e1v)) > 0.0f;
     };
+    // forward alpha of a sample that passes inside() and the cutoffs
+    auto sample_alpha = [&](float tf_pos) {
+      int t0, t1;
+      float frac;
+      tbr_tf_taps(tf_pos, &t0, &t1, &frac);
+      return tbr_correct_alpha(tbr_lerp(tf4[t0].w, tf4[t1].w, frac), swv);
+    };
+    const bool any_k = kb.x < kb.y;
+    const int g_lo = any_k ? kb.x / GROUP : 0;
+    const int g_hi = any_k ? (kb.y + GROUP - 1) / GROUP : 0;
 
-    // ---- sweep 1: the forward recurrence, storing T_{k-1} ----
-    int k_end = 0;  // planes [k_end, kp) are past termination: zero cotangent
-    bool term = false;
-    if (valid) {
-      float alpha = 0.0f;
-      k_end = k_real;
-      for (int k = 0; k < k_real; ++k) {
+    // ---- sweep 1: the forward recurrence up to termination, alpha
+    // checkpointed at the start of each group ----
+    float alpha = 0.0f;
+    int k_end = valid ? k_real : 0;  // planes [k_end, kp): zero cotangent
+    bool term = false, live = valid;
+    int g_top = g_lo;  // one past the last group this thread visits
+    for (int gg = g_lo; gg < g_hi && live; ++gg) {
+      const int k0 = gg * GROUP;
+      ckpt[(size_t)gg * plane + pix] = alpha;
+      stage<T, GROUP>(my_w, THREADS, W + pix, plane, k0, kb.x, kb.y);
+      const int s_end = min(GROUP, kb.y - k0);
+      for (int s = max(0, kb.x - k0); s < s_end; ++s) {
+        const int k = k0 + s;
         if (!inside(k)) continue;  // a == 0: alpha unchanged
-        const float tf_pos = tbr_tf_pos(tbr_to_f32(W[k * plane + p]), center,
-                                        half_width, width);
+        const float tf_pos =
+            tbr_tf_pos(my_w[s * THREADS], center, half_width, width);
         if (tbr_cut(tf_pos, low_c, high_c)) continue;
-        tsto[k * plane + p] = __fsub_rn(1.0f, alpha);
-        int t0, t1;
-        float frac;
-        tbr_tf_taps(tf_pos, &t0, &t1, &frac);
-        const float a =
-            tbr_correct_alpha(tbr_lerp(tf4[t0].w, tf4[t1].w, frac), swv);
+        const float a = sample_alpha(tf_pos);
         const float alpha_new =
             __fadd_rn(alpha, __fmul_rn(__fsub_rn(1.0f, alpha), a));
         if (a > 0.0f && alpha_new > et) {
           term = true;
+          live = false;
           k_end = k + 1;
           break;
         }
         alpha = alpha_new;
       }
-      for (int k = k_end; k < kp; ++k) {
-        dW[k * plane + p] = tbr_from_f32<T>(0.0f);
-        dL[k * plane + p] = tbr_from_f32<T>(0.0f);
-      }
+      g_top = gg + 1;
     }
+    const int g_top_w = (int)__reduce_max_sync(FULL, (unsigned)g_top);
 
-    // ---- sweep 2: k descending, every cotangent ----
-    const float g0 = valid ? g[p] : 0.0f;
-    const float g1 = valid ? g[plane + p] : 0.0f;
-    const float g2 = valid ? g[2 * plane + p] : 0.0f;
+    // zero cotangents outside the planes sweep 2 writes: planes
+    // [0, g_lo * GROUP) and [g_top_w * GROUP, kp), the same for the whole
+    // tile; a whole, aligned tile's rows go as 16-byte stores, several
+    // planes per warp-wide store
+    const int tc = tile - i * tpr;
+    zero_fill<T>(dW, dL, plane, i, n2, tc, lane, g_lo * GROUP,
+                 g_top_w * GROUP, kp, zvec && (tc + 1) * TILE <= n2);
+
+    // ---- sweep 2: groups descending, T recomputed from the checkpoints ----
+    const float g0 = valid ? g[pix] : 0.0f;
+    const float g1 = valid ? g[plane + pix] : 0.0f;
+    const float g2 = valid ? g[2 * plane + pix] : 0.0f;
     const float galpha =
-        valid ? __fmul_rn(g[3 * plane + p], term ? 0.0f : 1.0f) : 0.0f;
+        valid ? __fmul_rn(g[3 * plane + pix], term ? 0.0f : 1.0f) : 0.0f;
     float U = 0.0f, V = 1.0f;
-    const int k_top = (int)__reduce_max_sync(0xffffffffu, (unsigned)k_end);
-    for (int k = k_top - 1; k >= 0; --k) {
-      float wts[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      int ia = 0;
-      bool hit = false;
-      if (k < k_end) {  // implies valid
+    for (int gg = g_top_w - 1; gg >= g_lo; --gg) {  // warp-uniform
+      const int k0 = gg * GROUP;
+      const bool mine = gg < g_top;  // visited by this thread in sweep 1
+      unsigned shade = 0u;  // bit s: plane k0 + s is in the cube, not cut
+      if (mine) {
+        const int k_to = min(kb.y, k_end);
+        stage<T, GROUP>(my_w, THREADS, W + pix, plane, k0, kb.x, k_to);
+        stage<T, GROUP>(my_l, THREADS, L + pix, plane, k0, kb.x, k_to);
+        // T_{k-1} of the group's samples, with sweep 1's operations; the
+        // window's tf_pos replaces the value in its slot for the walk down
+        float ta = ckpt[(size_t)gg * plane + pix];
+        const int s_end = min(GROUP, k_to - k0);
+        for (int s = max(0, kb.x - k0); s < s_end; ++s) {
+          const int k = k0 + s;
+          if (!inside(k)) continue;
+          const float tf_pos =
+              tbr_tf_pos(my_w[s * THREADS], center, half_width, width);
+          if (tbr_cut(tf_pos, low_c, high_c)) continue;
+          shade |= 1u << s;
+          my_w[s * THREADS] = tf_pos;
+          my_t[s * THREADS] = __fsub_rn(1.0f, ta);
+          const float a = sample_alpha(tf_pos);
+          ta = __fadd_rn(ta, __fmul_rn(__fsub_rn(1.0f, ta), a));
+        }
+      }
+      for (int s = GROUP - 1; s >= 0; --s) {  // warp-uniform
+        const int k = k0 + s;
         float dw = 0.0f, dl = 0.0f;
-        const bool in = inside(k);
-        const float tf_pos =
-            in ? tbr_tf_pos(tbr_to_f32(W[k * plane + p]), center, half_width,
-                            width)
-               : 0.0f;
-        if (in && !tbr_cut(tf_pos, low_c, high_c)) {
-          const float Tk = tsto[k * plane + p];
-          const float light = tbr_to_f32(L[k * plane + p]);
+        float wts[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        int ia = 0;
+        bool hit = false;
+        if ((shade >> s) & 1u) {
+          const float tf_pos = my_w[s * THREADS];
+          const float Tk = my_t[s * THREADS];
+          const float light = my_l[s * THREADS];
           const float x = __fsub_rn(__fmul_rn(tf_pos, 256.0f), 0.5f);
           int ib;
           float frac;
@@ -170,8 +328,8 @@ __global__ void __launch_bounds__(THREADS) composite_bwd_kernel(
           const float ger = __fmul_rn(__fmul_rn(g0, w_), light);
           const float geg = __fmul_rn(__fmul_rn(g1, w_), light);
           const float geb = __fmul_rn(__fmul_rn(g2, w_), light);
-          const float ga = __fmul_rn(
-              __fmul_rn(__fmul_rn(da, gatef), dcorr), tbr_clip_grad(a_raw));
+          const float ga = __fmul_rn(__fmul_rn(__fmul_rn(da, gatef), dcorr),
+                                     tbr_clip_grad(a_raw));
           const float gx = __fadd_rn(
               __fadd_rn(__fadd_rn(__fmul_rn(ger, __fsub_rn(c1.x, c0.x)),
                                   __fmul_rn(geg, __fsub_rn(c1.y, c0.y))),
@@ -180,10 +338,8 @@ __global__ void __launch_bounds__(THREADS) composite_bwd_kernel(
           dw = __fmul_rn(gx, s256w);
           dl = __fmul_rn(w_, gl);
           acc_c = __fadd_rn(acc_c, __fmul_rn(gx, neg256w));
-          acc_w = __fadd_rn(
-              acc_w, __fmul_rn(gx, __fdiv_rn(__fmul_rn(256.0f,
-                                                       __fsub_rn(0.5f, tf_pos)),
-                                             width)));
+          const float dpos = __fmul_rn(256.0f, __fsub_rn(0.5f, tf_pos));
+          acc_w = __fadd_rn(acc_w, __fmul_rn(gx, __fdiv_rn(dpos, width)));
           const bool in_rng = x >= 0.0f && x < 255.0f;
           const float wa = in_rng ? __fsub_rn(1.0f, frac) : 1.0f;
           const float wb = in_rng ? frac : 0.0f;
@@ -200,74 +356,89 @@ __global__ void __launch_bounds__(THREADS) composite_bwd_kernel(
           U = __fadd_rn(__fmul_rn(a_eff, Pk), __fmul_rn(om, U));
           V = __fmul_rn(om, V);
         }
-        dW[k * plane + p] = tbr_from_f32<T>(dw);
-        dL[k * plane + p] = tbr_from_f32<T>(dl);
+        add_groups(wh, ia, wts, hit);
+        if (valid && k < kp) {
+          dW[(size_t)k * plane + pix] = tbr_from_f32<T>(dw);
+          dL[(size_t)k * plane + pix] = tbr_from_f32<T>(dl);
+        }
       }
-      tbr_warp_ordered_add<8>(wh, 256, ia, wts, hit);
     }
   }
-  __syncthreads();
 
+  // the block's window sums, in a fixed tree order, and its histogram row
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    acc_c = __fadd_rn(acc_c, __shfl_down_sync(FULL, acc_c, d));
+    acc_w = __fadd_rn(acc_w, __shfl_down_sync(FULL, acc_w, d));
+  }
+  if (lane == 0) {
+    red[0][warp] = acc_c;
+    red[1][warp] = acc_w;
+  }
+  __syncthreads();
   float* row = partials + (size_t)blockIdx.x * ROW;
-  for (int t = threadIdx.x; t < HIST; t += THREADS) {
+  for (int t = threadIdx.x; t < NT; t += THREADS) {
+    const int off = (t >> 8) * BINS + (t & 255);
     float s = 0.0f;
-    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, hist[w * HIST + t]);
+    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, hist[w * WHIST + off]);
     row[t] = s;
   }
-  red[threadIdx.x] = acc_c;
-  red[THREADS + threadIdx.x] = acc_w;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + s]);
-      red[THREADS + threadIdx.x] = __fadd_rn(red[THREADS + threadIdx.x],
-                                             red[THREADS + threadIdx.x + s]);
-    }
-    __syncthreads();
+  if (threadIdx.x < 2) {
+    float s = 0.0f;
+    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, red[threadIdx.x][w]);
+    row[NT + threadIdx.x] = s;
   }
-  if (threadIdx.x == 0) {
-    row[HIST] = red[0];
-    row[HIST + 1] = red[THREADS];
-  }
+}
+
+size_t smem_bytes(int P) {
+  return (1024 + WARPS * WHIST + 3 * GROUP * THREADS + 5 * (size_t)P) *
+         sizeof(float);
 }
 
 template <typename T>
 int launch(const void* W, const void* L, const float* tf, const float* pa,
-           const float* e1, const float* sw, const float* win, const float* g,
-           float* tsto, void* dW, void* dL, float* partials, int n1, int n2,
-           int k_real, int kp, int P, int blocks, float e0, float et,
-           float d1f, float d2f, void* stream) {
-  if (blocks <= 0) return (int)cudaGetLastError();
-  const size_t smem =
-      (1024 + WARPS * HIST + 2 * THREADS + 5 * (size_t)P) * sizeof(float);
+           const int* bounds, const float* e1, const float* sw,
+           const float* win, const float* g, float* ckpt, void* dW, void* dL,
+           float* partials, int n1, int n2, int k_real, int kp, int P,
+           int blocks, int zvec, float e0, float et, float d1f, float d2f,
+           void* stream) {
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(P);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(composite_bwd_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        composite_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
   composite_bwd_kernel<T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(W), static_cast<const T*>(L), tf, pa, e1, sw, win,
-      g, tsto, static_cast<T*>(dW), static_cast<T*>(dL), partials, n1, n2,
-      k_real, kp, P, e0, et, d1f, d2f);
+      static_cast<const T*>(W), static_cast<const T*>(L), tf, pa,
+      reinterpret_cast<const int2*>(bounds), e1, sw, win, g, ckpt,
+      static_cast<T*>(dW), static_cast<T*>(dL), partials, n1, n2, k_real, kp,
+      P, zvec, e0, et, d1f, d2f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define TBR_COMPOSITE_BWD_ARGS                                              \
-  const void *W, const void *L, const float *tf, const float *pa,           \
-      const float *e1, const float *sw, const float *win, const float *g,   \
-      float *tsto, void *dW, void *dL, float *partials, int n1, int n2,     \
-      int k_real, int kp, int P, int blocks, float e0, float et, float d1f, \
-      float d2f, void *stream
+#define TBR_COMPOSITE_BWD_ARGS                                                \
+  const void *W, const void *L, const float *tf, const float *pa,             \
+      const int *bounds, const float *e1, const float *sw, const float *win,  \
+      const float *g, float *ckpt, void *dW, void *dL, float *partials,       \
+      int n1, int n2, int k_real, int kp, int P, int blocks, int zvec,        \
+      float e0, float et, float d1f, float d2f, void *stream
 #define TBR_COMPOSITE_BWD_CALL                                              \
-  W, L, tf, pa, e1, sw, win, g, tsto, dW, dL, partials, n1, n2, k_real, kp, \
-      P, blocks, e0, et, d1f, d2f, stream
+  W, L, tf, pa, bounds, e1, sw, win, g, ckpt, dW, dL, partials, n1, n2,     \
+      k_real, kp, P, blocks, zvec, e0, et, d1f, d2f, stream
 
-// partials is (blocks, 2050): per block, the d TF histogram as
-// [tap(2) x channel(4)][texel(256)] (the frac tap kept at the floor texel),
-// then d center and d width. tsto is (k_real, n1, n2) f32 scratch; dW and
-// dL are (kp, n1, n2) in the stream type and are written in full.
+// One tile of 32 pixels per warp: `blocks` * 8 warps cover the
+// n1 * ceil(n2 / 32) tiles (more blocks than that idle; fewer loop).
+// bounds is (n1, ceil(n2 / 32), 2) int32 [k_lo, k_hi) per tile
+// (tile_plane_bounds, no jitter); ckpt (ceil(k_real / 8), n1, n2) float32
+// scratch; partials (blocks, 1026): per block the d TF histogram as
+// [channel(4)][texel(256)], then d center and d width. dW and dL are
+// (kp, n1, n2) in the stream type and are written in full. `zvec`: rows
+// of n2 elements of the stream type are a multiple of 16 bytes, and dW and
+// dL start on a 16-byte boundary.
 TBR_API int tbr_composite_bwd_f32(TBR_COMPOSITE_BWD_ARGS) {
   return launch<float>(TBR_COMPOSITE_BWD_CALL);
 }

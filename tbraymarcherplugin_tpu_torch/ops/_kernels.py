@@ -38,8 +38,8 @@ BUILD_TIMEOUT_S = 900
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_COMPOSITE = [_P] * 11 + [_I] * 5 + [_F] * 4 + [_P]
-_COMPOSITE_BWD = [_P] * 12 + [_I] * 6 + [_F] * 4 + [_P]
+_COMPOSITE = [_P] * 12 + [_I] * 6 + [_F] * 4 + [_P]
+_COMPOSITE_BWD = [_P] * 13 + [_I] * 7 + [_F] * 4 + [_P]
 SIGNATURES = {
     "tbr_composite_f32": _COMPOSITE,
     "tbr_composite_bf16": _COMPOSITE,

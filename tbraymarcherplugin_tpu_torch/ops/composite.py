@@ -9,7 +9,8 @@ planes with batched banded matmuls (`shearwarp._resample_block`, as the JAX
 package leaves them outside its kernel), computes the per-pixel step and
 clip fields, the per-plane coefficients and the exact per-chunk occupancy
 flags; :func:`composite` then launches `csrc/composite.cu` for CUDA
-tensors or runs :func:`composite_plain` for CPU tensors.
+tensors, with each tile's plane interval from :func:`tile_plane_bounds`,
+or runs :func:`composite_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,10 +29,102 @@ from .transfer import windowed_tf_range_occupied
 
 KB = 16  # planes per occupancy chunk
 MODES = ("lit", "unlit", "intensity")  # csrc/composite.cu's MODE_* order
+# csrc/composite_tile.cuh: a warp's tile is 32 pixels of one row; K1 and K5
+# take their tile's plane interval from tile_plane_bounds
+TILE = (1, 32)
 
 
 def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _axis_ok(a, b, n: int, th: int, dim: int, jitter: bool) -> np.ndarray:
+    """(tiles, K) bool: does some pixel row (column) of each tile of ``th``
+    rows (columns) of ``n`` lie in [-0.5, dim - 0.5] at plane k? The
+    coordinate a[k] + b[k] * i rounds as the kernels round it (float32, one
+    rounding per operation), which is monotone in i, so its range over a
+    tile is the range of its first and last row. With ``jitter`` plane k
+    spans the hull of planes k and k + 1 (its samples lerp between them),
+    and ``a``, ``b`` hold K + 1 planes."""
+    lo = np.arange(0, n, th, dtype=np.float32)
+    hi = np.minimum(lo + np.float32(th - 1), np.float32(n - 1))
+    va = a[None, :] + b[None, :] * lo[:, None]
+    vb = a[None, :] + b[None, :] * hi[:, None]
+    vmin, vmax = np.minimum(va, vb), np.maximum(va, vb)
+    if jitter:
+        vmin = np.minimum(vmin[:, :-1], vmin[:, 1:])
+        vmax = np.maximum(vmax[:, :-1], vmax[:, 1:])
+    top = np.float32(dim) - np.float32(0.5)
+    return (vmax >= np.float32(-0.5)) & (vmin <= top)
+
+
+def _interval(ok: np.ndarray):
+    """Per row of ``ok`` (tiles, K): its first true index and one past its
+    last (0, 0 where none), and whether the trues are contiguous."""
+    K = ok.shape[1]
+    anyv = ok.any(axis=1)
+    lo = np.where(anyv, ok.argmax(axis=1), 0)
+    hi = np.where(anyv, K - ok[:, ::-1].argmax(axis=1), 0)
+    contiguous = ok.sum(axis=1) == hi - lo
+    return lo, hi, contiguous
+
+
+def tile_plane_bounds(pa, n1: int, n2: int, d1: int, d2: int, k_real: int,
+                      tile=TILE, jitter: bool = False) -> np.ndarray:
+    """(n1 / th, n2 / tw, 2) int32 [k_lo, k_hi) per (th, tw) tile of the
+    intermediate image, ragged edge tiles included: the smallest interval
+    of planes k < ``k_real`` holding every plane whose in-cube test can pass
+    for some pixel of the tile (the JAX package's `_geo_chunk_validity` and
+    `_bounds_from_validity` at plane granularity). Pure geometry: the clip
+    plane, a λ ceiling and occupancy only mask more. ``pa`` is the (5, P)
+    coefficient array a1, b1, a2, b2, lam; with ``jitter`` (the sample of
+    plane k lies between planes k and k + 1) it must hold plane
+    ``k_real``, as composite's extended array does. Where the JAX package
+    unions per plane "both axes in at k or both in at k + 1", this takes
+    each axis's hull over k and k + 1, which also keeps a sample whose ray
+    clips a corner of the cube between two planes."""
+    th, tw = tile
+    pa = np.asarray(pa, np.float32)
+    n = k_real + (1 if jitter else 0)
+    if pa.shape[1] < n:
+        raise ValueError(f"pa holds {pa.shape[1]} planes, need {n}")
+    ok1 = _axis_ok(pa[0, :n], pa[1, :n], n1, th, d1, jitter)
+    ok2 = _axis_ok(pa[2, :n], pa[3, :n], n2, tw, d2, jitter)
+    lo1, hi1, c1 = _interval(ok1)
+    lo2, hi2, c2 = _interval(ok2)
+    if c1.all() and c2.all():  # the intersection of two intervals
+        lo = np.maximum(lo1[:, None], lo2[None, :])
+        hi = np.minimum(hi1[:, None], hi2[None, :])
+        empty = lo >= hi
+        lo, hi = np.where(empty, 0, lo), np.where(empty, 0, hi)
+    else:
+        ok = ok1[:, None, :] & ok2[None, :, :]
+        shape = ok.shape[:2]
+        lo, hi, _ = _interval(ok.reshape(-1, ok.shape[2]))
+        lo, hi = lo.reshape(shape), hi.reshape(shape)
+    return np.stack([lo, hi], axis=-1).astype(np.int32)
+
+
+_BOUNDS_CACHE: collections.OrderedDict = collections.OrderedDict()
+
+
+def tile_bounds_tensor(pa, n1: int, n2: int, d1: int, d2: int, k_real: int,
+                       jitter: bool, device) -> torch.Tensor:
+    """:func:`tile_plane_bounds` at the kernels' tile, as an int32 tensor
+    on ``device``; the last few are kept, so that the frames and steps of
+    one plan compute and upload it once."""
+    pa = np.ascontiguousarray(pa, np.float32)
+    key = (pa.tobytes(), pa.shape, n1, n2, d1, d2, k_real, jitter, str(device))
+    t = _BOUNDS_CACHE.get(key)
+    if t is None:
+        t = torch.from_numpy(tile_plane_bounds(
+            pa, n1, n2, d1, d2, k_real, TILE, jitter)).to(device)
+        _BOUNDS_CACHE[key] = t
+        while len(_BOUNDS_CACHE) > 8:
+            _BOUNDS_CACHE.popitem(last=False)
+    else:
+        _BOUNDS_CACHE.move_to_end(key)
+    return t
 
 
 def variant(mode: str, depth_lam=None) -> str:
@@ -86,6 +179,23 @@ def _clip_step_fields(plan: ShearWarpPlan, clip_center, clip_direction,
     return step_world.contiguous(), e0, e1.contiguous()
 
 
+def in_cube_plain(pa, k: int, gi, gj, jitter, d1: int, d2: int):
+    """(in-cube test, λ) of plane k's samples at pixel rows ``gi`` (n1, 1)
+    and columns ``gj`` (1, n2), float32: the coordinates a + b * i, lerped
+    with plane k + 1 by the per-pixel ``jitter`` where it is given."""
+    a1k, b1k, a2k, b2k, lamk = (float(x) for x in pa[:, k])
+    v1 = a1k + b1k * gi
+    v2 = a2k + b2k * gj
+    lam_px = lamk
+    if jitter is not None:
+        a1n, b1n, a2n, b2n = (float(x) for x in pa[:4, k + 1])
+        v1 = v1 + (a1n + b1n * gi - v1) * jitter
+        v2 = v2 + (a2n + b2n * gj - v2) * jitter
+        lam_px = lamk + float(pa[4, k + 1] - pa[4, k]) * jitter
+    return ((v1 >= -0.5) & (v1 <= d1 - 0.5) & (v2 >= -0.5)
+            & (v2 <= d2 - 0.5)), lam_px
+
+
 def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
                     e0: float, early_termination: float, d1: int, d2: int,
                     k_real: int, depth_lam=None, mode: str = "lit",
@@ -98,11 +208,13 @@ def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
     ceiling, tensors on the planes' device. ``mode``: see the module
     docstring; intensity gives (g, g, g, hit).
 
-    ``stats``: if a dict, adds the work the kernel does on these inputs:
-    ``steps``, the (pixel, plane) pairs a thread visits (occupied chunks,
-    up to its termination), ``samples``, those that pass the mask (whose
-    planes it reads), and ``shaded``, those that also pass the cutoffs and
-    go through the TF (never in intensity mode)."""
+    ``stats``: if a dict, adds the work these inputs need: ``steps``, the
+    (pixel, plane) pairs of occupied chunks up to the pixel's termination
+    (what a thread that visits every plane does; the kernel skips those
+    outside its tile's interval, `tile_plane_bounds`), ``samples``, those
+    that pass the mask (whose planes are read), and ``shaded``, those that
+    also pass the cutoffs and go through the TF (never in intensity
+    mode)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
     dev = e1.device
@@ -121,19 +233,11 @@ def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
     for k in range(k_real):
         if not occ[k // KB]:
             continue
-        a1k, b1k, a2k, b2k, lamk = (float(x) for x in pa[:, k])
-        v1 = a1k + b1k * gi
-        v2 = a2k + b2k * gj
-        lam_px = lamk
+        cube, lam_px = in_cube_plain(pa, k, gi, gj, jitter, d1, d2)
         value = W[k].float()
         if jitter is not None:
-            a1n, b1n, a2n, b2n = (float(x) for x in pa[:4, k + 1])
-            v1 = v1 + (a1n + b1n * gi - v1) * jitter
-            v2 = v2 + (a2n + b2n * gj - v2) * jitter
-            lam_px = lamk + float(pa[4, k + 1] - pa[4, k]) * jitter
             value = value + (W[k + 1].float() - value) * jitter
-        m = ((v1 >= -0.5) & (v1 <= d1 - 0.5) & (v2 >= -0.5) & (v2 <= d2 - 0.5)
-             & ((e0 + lam_px * e1) > 0.0) & ~term)
+        m = cube & ((e0 + lam_px * e1) > 0.0) & ~term
         if depth_lam is not None:
             m = m & (lam_px <= depth_lam)
         tf_pos = (value - center + width * 0.5) / width
@@ -197,7 +301,8 @@ def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
         raise ValueError("L is read in lit mode only: pass it there, and "
                          "None otherwise")
     n1, n2 = e1.shape
-    pa = torch.as_tensor(np.asarray(pa, np.float32), device=dev).contiguous()
+    pa_host = np.asarray(pa, np.float32)
+    pa = torch.as_tensor(pa_host, device=dev).contiguous()
     P = pa.shape[1]
     need = k_real + (1 if jitter is not None else 0)
     if W.shape[0] < need or (lit and L.shape[0] < need) or P < need:
@@ -221,6 +326,8 @@ def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
                              f"shape")
         if name in ("jitter", "depth_lam") and t.shape != (n1, n2):
             raise ValueError(f"{name} must be ({n1}, {n2})")
+    bounds = tile_bounds_tensor(pa_host, n1, n2, d1, d2, k_real,
+                                jitter is not None, dev)
     out = torch.empty((4, n1, n2), dtype=torch.float32, device=dev)
     name = "tbr_composite_bf16" if W.dtype == torch.bfloat16 \
         else "tbr_composite_f32"
@@ -230,10 +337,10 @@ def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
 
     _kernels.launch(
         name, W.data_ptr(), ptr(L), tf_table.data_ptr(), pa.data_ptr(),
-        occ.data_ptr(), e1.data_ptr(), step_world.data_ptr(), ptr(jitter),
-        ptr(depth_lam), win.data_ptr(), out.data_ptr(), n1, n2, k_real, P,
-        MODES.index(mode), e0, early_termination, float(d1), float(d2),
-        _kernels.stream_of(W),
+        occ.data_ptr(), bounds.data_ptr(), e1.data_ptr(),
+        step_world.data_ptr(), ptr(jitter), ptr(depth_lam), win.data_ptr(),
+        out.data_ptr(), n1, n2, k_real, P, occ.numel(), MODES.index(mode),
+        e0, early_termination, float(d1), float(d2), _kernels.stream_of(W),
     )
     composite.launches += 1
     composite.variant_launches[variant(mode, depth_lam)] += 1

@@ -29,8 +29,11 @@ from . import composite as C
 from .compositing import EARLY_TERMINATION_ALPHA
 from .shearwarp import ShearWarpPlan
 from .tf_alpha import _assemble, _clip_grad
+from .tf_rgba import warp_rounds
 
-_HIST = 8 * 256  # K5's d TF histogram: [tap(2) x channel(4)][texel]
+_NT = 4 * 256  # K5's d TF row: [channel(4)][texel(256)]
+_ROW = _NT + 2  # + d center, d width
+GROUP = 8  # csrc/composite_tile.cuh: planes per alpha checkpoint
 
 
 def _dtf_dwin(hist, dc, dw):
@@ -41,13 +44,50 @@ def _dtf_dwin(hist, dc, dw):
     return dtf, torch.stack([dc, dw, zero, zero])
 
 
+def _add_clustering(ia, hit, acc: dict) -> None:
+    """Add to ``acc`` how one plane's histogram adds cluster: ``ia`` the
+    flat floor texels of the plane's pixels, ``hit`` where a pixel adds;
+    the rounds of each warp of 32 consecutive pixels
+    (`tf_rgba.warp_rounds`); a run is a maximal sequence of consecutive
+    hitting pixels on one texel."""
+    if ia.numel() == 0:
+        return
+    rounds = warp_rounds(ia, hit)
+    cont = hit[1:] & hit[:-1] & (ia[1:] == ia[:-1])  # a run goes on
+    hits = int(hit.sum())
+    for key, v in (("pixels", ia.numel()), ("hits", hits),
+                   ("warps", rounds.numel()),
+                   ("warps_hit", int((rounds > 0).sum())),
+                   ("rounds", int(rounds.sum())),
+                   ("runs", hits - int(cont.sum()))):
+        acc[key] = acc.get(key, 0) + v
+    acc["rounds_max"] = max(acc.get("rounds_max", 0), int(rounds.max()))
+
+
+def clustering_summary(acc: dict) -> dict:
+    """``hit``, the share of (pixel, plane) pairs that add to the d TF
+    histogram; ``rounds_mean`` over the (warp, plane) pairs with a hit and
+    ``rounds_max``; ``run_mean``, hits per run; from the sums
+    :func:`composite_bwd_plain` fills in its ``stats``."""
+    return dict(hit=acc["hits"] / max(acc["pixels"], 1),
+                rounds_mean=acc["rounds"] / max(acc["warps_hit"], 1),
+                rounds_max=acc["rounds_max"],
+                run_mean=acc["hits"] / max(acc["runs"], 1))
+
+
 def composite_bwd_plain(W, L, tf_table, pa, e1, step_world, win, g, e0: float,
                         early_termination: float, d1: int, d2: int,
-                        k_real: int):
+                        k_real: int, stats: dict | None = None):
     """Cotangents of the lit composite (:func:`composite.composite_plain`
     without jitter) for the (4, n1, n2) output cotangent ``g``: (dW, dL in
     the planes' type and shape, d TF (256, 4), d window (4,)); the kernel's
-    arithmetic, one PyTorch operation per step over the (n1, n2) plane."""
+    arithmetic, one PyTorch operation per step over the (n1, n2) plane.
+
+    ``stats``: if a dict, adds how the d TF histogram's adds cluster, plane
+    by plane, over the planes' flat pixels: the sums ``pixels``, ``hits``
+    (pixels whose sample is alive, in the cube and not cut), ``warps``,
+    ``warps_hit``, ``rounds``, ``runs`` and the largest ``rounds_max``
+    (see :func:`clustering_summary`)."""
     dev = e1.device
     f32 = torch.float32
     center, width, low_c, high_c = win[0], win[1], win[2], win[3]
@@ -135,6 +175,8 @@ def composite_bwd_plain(W, L, tf_table, pa, e1, step_world, win, g, e0: float,
         for t, wt in enumerate((wa, wb)):
             for ch, ge in enumerate((ger, geg, geb, ga)):
                 hist[t, ch].index_add_(0, ia.flatten(), (ge * wt).flatten())
+        if stats is not None:
+            _add_clustering(ia.flatten(), (gatef > 0.0).flatten(), stats)
         U = a_eff * P + (1.0 - a_eff) * U
         V = (1.0 - a_eff) * V
     dtf, dwin = _dtf_dwin(hist, dc, dw)
@@ -156,7 +198,8 @@ def composite_bwd(W, L, tf_table, pa, e1, step_world, win, g, e0: float,
     n1, n2 = e1.shape
     W, L, g = W.contiguous(), L.contiguous(), g.contiguous()
     tf_table = tf_table.contiguous()
-    pa = torch.as_tensor(np.asarray(pa, np.float32), device=dev).contiguous()
+    pa_host = np.asarray(pa, np.float32)
+    pa = torch.as_tensor(pa_host, device=dev).contiguous()
     P = pa.shape[1]
     kp = W.shape[0]
     if (tuple(tf_table.shape) != (256, 4) or tuple(g.shape) != (4, n1, n2)
@@ -168,30 +211,44 @@ def composite_bwd(W, L, tf_table, pa, e1, step_world, win, g, e0: float,
     for name, t in (("tf_table", tf_table), ("e1", e1),
                     ("step_world", step_world), ("win", win), ("g", g)):
         _kernels.check(t, name, torch.float32, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(min(-(-n1 * n2 // 128), 4 * sms), 1)
-    tsto = torch.empty((k_real, n1, n2), dtype=torch.float32, device=dev)
+    bf16 = W.dtype == torch.bfloat16
+    blocks = _blocks(n1, n2)
+    bounds = C.tile_bounds_tensor(pa_host, n1, n2, d1, d2, k_real, False,
+                                  dev)
+    # alpha at the start of each group of GROUP planes (no T scratch)
+    ckpt = torch.empty((-(-k_real // GROUP), n1, n2), dtype=torch.float32,
+                       device=dev)
     dW = torch.empty_like(W)
     dL = torch.empty_like(L)
-    partials = torch.empty((blocks, _HIST + 2), dtype=torch.float32,
-                           device=dev)
-    name = ("tbr_composite_bwd_bf16" if W.dtype == torch.bfloat16
-            else "tbr_composite_bwd_f32")
+    partials = torch.empty((blocks, _ROW), dtype=torch.float32, device=dev)
+    name = "tbr_composite_bwd_bf16" if bf16 else "tbr_composite_bwd_f32"
     _kernels.launch(
         name, W.data_ptr(), L.data_ptr(), tf_table.data_ptr(), pa.data_ptr(),
-        e1.data_ptr(), step_world.data_ptr(), win.data_ptr(), g.data_ptr(),
-        tsto.data_ptr(), dW.data_ptr(), dL.data_ptr(), partials.data_ptr(),
-        n1, n2, k_real, kp, P, blocks, float(e0), float(early_termination),
-        float(d1), float(d2), _kernels.stream_of(W),
+        bounds.data_ptr(), e1.data_ptr(), step_world.data_ptr(),
+        win.data_ptr(), g.data_ptr(), ckpt.data_ptr(), dW.data_ptr(),
+        dL.data_ptr(), partials.data_ptr(), n1, n2, k_real, kp, P, blocks,
+        int(n2 * W.element_size() % 16 == 0 and dW.data_ptr() % 16 == 0
+            and dL.data_ptr() % 16 == 0),
+        float(e0), float(early_termination), float(d1), float(d2),
+        _kernels.stream_of(W),
     )
     sums = _kernels.sum_partials(partials)
     composite_bwd.launches += 1
-    dtf, dwin = _dtf_dwin(sums[:_HIST].view(2, 4, 256), sums[_HIST],
-                          sums[_HIST + 1])
-    return dW, dL, dtf, dwin
+    dtf = sums[:_NT].view(4, 256).T.contiguous()
+    zero = sums.new_zeros(2)
+    return dW, dL, dtf, torch.cat([sums[_NT:], zero])
 
 
 composite_bwd.launches = 0
+_WARPS = 8  # csrc/composite_bwd.cu: warps per block, one tile each
+
+
+def _blocks(n1: int, n2: int) -> int:
+    """K5's grid: a tile of ``composite.TILE`` pixels per warp, one row of
+    partials per block."""
+    th, tw = C.TILE
+    tiles = -(-n1 // th) * -(-n2 // tw)
+    return max(1, -(-tiles // _WARPS))
 
 
 class _FusedComposite(torch.autograd.Function):

@@ -104,15 +104,11 @@ def windowed_tf_rgba(values: torch.Tensor, tf_table: torch.Tensor,
 windowed_tf_rgba.launches = 0
 
 
-def histogram_stats(i0: torch.Tensor, hit: torch.Tensor) -> dict:
-    """How the histogram adds of the flat texels ``i0`` (only where ``hit``)
-    cluster: ``hit``, the share of elements that add; ``rounds_mean`` and
-    ``rounds_max``, over warps of 32 consecutive elements (the last one
-    padded), the largest number of hitting elements on one texel (a warp
-    with no hit counts 0), which is the number of one-at-a-time add rounds
-    of a warp whose lanes take one element each; ``run_mean``, the mean
-    length of the runs of equal ``i0`` along the elements."""
-    i0, hit = i0.flatten(), hit.flatten()
+def warp_rounds(i0: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """Per warp of 32 consecutive flat elements (the last one padded), the
+    largest number of hitting elements on one texel of ``i0`` (0 for a
+    warp with no hit): the one-at-a-time add rounds of a warp whose lanes
+    take one element each."""
     n = i0.numel()
     pad = -n % 32
     lane = torch.arange(n + pad, device=i0.device)
@@ -127,7 +123,17 @@ def histogram_stats(i0: torch.Tensor, hit: torch.Tensor) -> dict:
     first = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
                          dim=1).values
     group = torch.where(s >= 0, pos - first + 1, torch.zeros_like(pos))
-    rounds = group.amax(dim=1)
+    return group.amax(dim=1)
+
+
+def histogram_stats(i0: torch.Tensor, hit: torch.Tensor) -> dict:
+    """How the histogram adds of the flat texels ``i0`` (only where ``hit``)
+    cluster: ``hit``, the share of elements that add; ``rounds_mean`` and
+    ``rounds_max`` of :func:`warp_rounds`; ``run_mean``, the mean length of
+    the runs of equal ``i0`` along the elements."""
+    i0, hit = i0.flatten(), hit.flatten()
+    n = i0.numel()
+    rounds = warp_rounds(i0, hit) if n else None
     runs = 1 + int((i0[1:] != i0[:-1]).sum()) if n else 0
     return dict(hit=float(hit.float().mean()) if n else 0.0,
                 rounds_mean=float(rounds.float().mean()) if n else 0.0,

@@ -395,6 +395,140 @@ def test_composite_bwd_kernel_matches_plain(cuda, gen, dtype, win):
     _close(got[3], want[3], 1e-4, 1e-5, "dwin")
 
 
+def _ragged_ops(cuda, gen, dtype, mode="lit", jitter=True, win=WINDOWS[0],
+                vol=None, align=1, size=(350, 190), margin=(9, 45)):
+    """K1's inputs on a plan with ragged tile edges (``align=1``: n1 and n2
+    fit the footprint, n2 not a multiple of the 128-pixel tile), grown by
+    ``margin`` rows and columns that lie wholly outside the volume's
+    footprint."""
+    import dataclasses
+
+    dims = (40, 48, 36)
+    plan = PSW.plan_shearwarp(
+        PS.Camera.look_at((1.7, -1.9, 0.6), (0.0, 0.0, 0.0),
+                          fov_degrees=55.0),
+        PS.VolumeTransform.create(), dims, dims, *size, align=align,
+        max_planes=50)
+    plan = dataclasses.replace(plan, n1=plan.n1 + margin[0],
+                               n2=plan.n2 + margin[1])
+    vol = torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda) \
+        if vol is None else vol(dims).to(cuda)
+    lv = (torch.from_numpy(gen.random(dims, dtype=np.float32)).to(cuda)
+          if mode == "lit" else None)
+    jit = (torch.from_numpy(gen.random((plan.n1, plan.n2), dtype=np.float32))
+           .to(cuda) if jitter else None)
+    clip = PS.ClipPlane(*CLIP)
+    ops = PC.prepare_composite(
+        vol, T.tf_ct_bone(device=cuda), lv, plan, win, clip.center,
+        clip.direction, compute_dtype=dtype, jitter=jit, mode=mode,
+        sample_nearest=mode == "unlit")
+    return plan, dims, ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["lit", "lit_nojitter", "unlit",
+                                     "intensity", "lit_depth", "opaque"])
+def test_composite_tiles_on_ragged_and_empty_tiles(cuda, gen, dtype,
+                                                   variant):
+    """K1, each variant, against its plain version on a plan whose tiles
+    are ragged (n2 % 128 != 0, and n2 % 4 != 0 for the element-wise
+    loads) and where some tiles lie wholly outside the footprint (an empty
+    interval); with an opaque constant volume ("opaque") every pixel
+    terminates at its first sample, so whole tiles stop in their first
+    chunk. Two launches give the same bits."""
+    opaque = variant == "opaque"
+    mode = "lit" if opaque else variant.split("_")[0]
+    plan, dims, ops = _ragged_ops(
+        cuda, gen, dtype, mode, jitter=variant != "lit_nojitter",
+        win=[0.0, 0.1, 0.0, 0.0] if opaque else WINDOWS[0],
+        vol=(lambda d: torch.full(d, 0.6)) if opaque else None)
+    assert plan.n2 % 128 != 0 and plan.n2 % 4 != 0
+    bounds = PC.tile_plane_bounds(
+        ops["pa"], plan.n1, plan.n2, ops["d1"], ops["d2"], plan.k,
+        jitter=ops["jitter"] is not None)
+    assert (bounds[..., 1] <= bounds[..., 0]).any()  # a tile outside
+    if variant == "lit_depth":
+        lam = float(plan.lam[len(plan.lam) // 2])
+        lmax = torch.full((plan.n1, plan.n2), float("inf"), device=cuda)
+        lmax[:, : plan.n2 // 2] = lam + 0.05 * torch.from_numpy(
+            gen.standard_normal((plan.n1, plan.n2 // 2)).astype(
+                np.float32)).to(cuda)
+        ops["depth_lam"] = lmax
+    got = PC.composite(**ops)
+    again = PC.composite(**ops)
+    want = PC.composite_plain(**ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float(want[3].max()) > 0.5
+    if opaque:  # tiles (rows of 128) whose every hit snapped at once
+        n = plan.n2 // 128 * 128
+        a = want[3][:, :n].reshape(plan.n1, -1, 128)
+        done = ((a > 0).sum(dim=2) >= 64) & ((a > 0) <= (a == 1.0)).all(dim=2)
+        assert bool(done.any())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=2e-6)
+
+
+def _bwd_ops(cuda, gen, ops):
+    ops = dict(ops)
+    for k in ("jitter", "occ"):
+        del ops[k]
+    n1, n2 = ops["e1"].shape
+    ops["g"] = torch.from_numpy(gen.random((4, n1, n2),
+                                           dtype=np.float32)).to(cuda)
+    return ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one_texel", "ragged"])
+def test_composite_bwd_kernel_on_one_texel_and_ragged_tiles(cuda, gen, dtype,
+                                                            case):
+    """K5 against its plain version where every sample of a warp lies on
+    one texel (a constant volume: the histogram adds' worst case), and on
+    a plan whose n2 is not a multiple of the tile (nor of 4); the same
+    bits on two launches."""
+    const = (lambda d: torch.full(d, 0.6)) if case == "one_texel" else None
+    _, _, ops = _ragged_ops(cuda, gen, dtype, jitter=False, vol=const,
+                            align=1 if case == "ragged" else 128,
+                            margin=(0, 0), win=[0.45, 0.7, 0.0, 0.0])
+    ops = _bwd_ops(cuda, gen, ops)
+    n2 = ops["e1"].shape[1]
+    assert (n2 % 128 != 0) == (case == "ragged")
+    got = PK5.composite_bwd(**ops)
+    again = PK5.composite_bwd(**ops)
+    stats = {}
+    want = PK5.composite_bwd_plain(**ops, stats=stats)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    assert float(want[2].abs().max()) > 0
+    if case == "one_texel":
+        assert stats["rounds_max"] == 32
+    rtol = 1e-4 if dtype == torch.float32 else 8e-3
+    for name, a, b in zip(("dW", "dL"), got, want):
+        _close(a, b, rtol, 1e-5, name)
+    _close(got[2], want[2], 1e-4, 1e-5, "dtf")
+    _close(got[3], want[3], 1e-4, 1e-5, "dwin")
+
+
+def test_composite_bwd_kernel_keeps_no_transmittance_scratch(cuda, gen):
+    """A K5 call allocates its outputs, an alpha checkpoint per 8 planes
+    and a row of partials per block: less than half of one float32
+    (k_real, n1, n2) transmittance array, which the first design kept."""
+    plan, _, ops = _ragged_ops(cuda, gen, torch.bfloat16, jitter=False,
+                               align=8, size=(640, 360), margin=(0, 0))
+    ops = _bwd_ops(cuda, gen, ops)
+    PK5.composite_bwd(**ops)  # built, grid asked, bounds cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dW, dL, _, _ = PK5.composite_bwd(**ops)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - before
+             - dW.nbytes - dL.nbytes)
+    t_bytes = 4 * plan.k * plan.n1 * plan.n2
+    assert extra < t_bytes / 2, (extra, t_bytes)
+
+
 def test_render_lit_scene_grads_kernels_match_plain(cuda):
     """The whole fwd+bwd at 32^3 through K1-K8 against the all-plain path
     on the card (float32 planes)."""
