@@ -30,14 +30,20 @@ Phases, one line each:
      (and against itself: two launches must give the same bits), how K5's
      histogram adds cluster there (the plain version's `stats=`: hit
      share, add rounds per warp of 32 pixels and plane, runs of equal
-     texels), the gradients against the all-plain path on the card, and a 24^3
-     fwd+bwd on the card against the CPU;
-  6. march: four fly-through frames with the camera inside the volume
-     (same scene, jitter on), where shear-warp has no plan and `Renderer`
-     marches through K9: K9's counter must rise and K1's must not; frames
-     are checked for finiteness, coverage and distinct checksums; K9
-     against its plain version on the path's inputs, and on the bench
-     camera forced to march (`march_impl="pallas"`), both timed; the frame
+     texels), K7 as one device kernel per face and exactly its plain version
+     on five more faces (K7_FACES), and its error on a face too large for
+     one launch, the gradients against the all-plain path on the card, and
+     a 24^3 fwd+bwd on the card against the CPU;
+  6. march: the occupancy grid's build (timed), then four fly-through
+     frames with the camera inside the volume (same scene, jitter on),
+     where shear-warp has no plan and `Renderer` marches through K9: K9's
+     counter must rise and K1's must not; frames are checked for
+     finiteness, coverage and distinct checksums; K9 against its plain
+     version on the path's inputs, and on the bench camera forced to march
+     (`march_impl="pallas"`), both timed, with the work of its warps (the
+     plain version's `stats=`: lane slots per step, the share that shades,
+     the steps fetched, in empty cells, cut, of alpha 0); a frame without
+     empty-space skipping against one with it (the same bits); the frame
      against the all-plain path; a 24^3 frame inside the volume on the card
      against the CPU; one frame back outside takes K1 again; and a small
      `render_lit_scene(march_impl="blocked")` fwd+bwd on the card against
@@ -138,6 +144,18 @@ FRAME_VS_PLAIN_LIMIT = 1e-4
 # relative) or flip one pixel's 0.95 snap, which moves that pixel's whole
 # contribution.
 GRAD_VS_PLAIN_LIMIT = 1e-2
+# Phase 5: K7 on faces beyond the path's, (K, H, W) and offsets, each held
+# to its plain version exactly: a half-resolution face, a non-square face
+# whose rows shift past many 1-row bands in both directions, and the faces
+# of a 512^3 and a 1024^3 volume; and a face too large for one launch (a
+# 2048-row face needs 16 rows of 2048 pixels a block on 132 SMs, above
+# 1024 threads of 8), on which K7 must raise.
+K7_FACES = (((64, 128, 128), (0.37, -1.6)),
+            ((64, 96, 200), (-10.4, 3.3)),
+            ((64, 96, 200), (7.6, -12.2)),
+            ((32, 512, 512), (3.4, -9.6)),
+            ((8, 1024, 1024), (-2.2, 1.7)))
+K7_TOO_LARGE = (1, 2048, 2048)
 # Phase 6: the fly-through camera, inside the 256^3 volume's dominant slab
 # (no shear-warp plan), looking at the center through the phantom's bone
 # shell; every ray of its frame hits bone (alpha coverage 1.0 on the CPU at
@@ -170,7 +188,7 @@ FIT_START_CENTER = 0.6
 # source (a transcendental counts as one operation): per output element of
 # the row lerp, per element of its first operand otherwise. The march and
 # the composite count what their threads do on the inputs they were timed
-# on (`march_ops`, `composite_ops`).
+# on (`march_bound`, `composite_ops`).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_ELEMENT = {
@@ -184,12 +202,16 @@ OPS_PER_ELEMENT = {
 # (3 mul, 3 add) and the clip test (3 sub, 3 mul, 2 add, 1 compare): 15.
 # A sample that is neither clipped nor cut adds: the volume's trilinear
 # fetch (per axis mul, sub, floor, sub, max, min: 18; 3 weights; 7 lerps
-# of 3: 42), the window and cut (sub, add, div, 2 compares: 5), the TF
+# of 3: 21), the window and cut (sub, add, div, 2 compares: 5), the TF
 # taps (mul, sub, floor, sub, 2 x max/min, add: 9), the alpha lerp and
-# its step correction (3 + 8), the light's fetch at the clamped position
-# (6 + 42), the RGB lerps and light products (12) and the composite with
-# the termination test (13): 140 more, 155 in all.
-MARCH_STEP_OPS, MARCH_SAMPLE_OPS = 15, 140
+# its step correction (3 + 8): 67. Such a sample whose alpha is above 0
+# adds the light's fetch at the clamped position (6 + 42), the RGB lerps
+# and light products (12) and the composite with the termination test
+# (13): 73; a sample of alpha 0 adds exactly nothing, so the function
+# needs none of that for it. The first designs' bound charged all 140 to
+# every sample that is neither clipped nor cut; it is printed beside the
+# bound (`old_bound_ms`).
+MARCH_STEP_OPS, MARCH_SAMPLE_OPS, MARCH_SHADE_OPS = 15, 67, 73
 # K1's float operations (csrc/composite.cu, counted as K9's). A (pixel,
 # plane) visit: the coordinates (2 mul, 2 add), with jitter the next
 # plane's (4) and three lerps (9), and the mask (4 compares, mul, add,
@@ -268,6 +290,7 @@ def cuda_ms(torch, fn, reps):
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PROFILE_TRIES = 6
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
@@ -277,9 +300,11 @@ def device_ms(torch, fn, reps):
     per distinct kernel, copy or fill, its mean duration times its count per
     call (its events over ``reps``, rounded), summed. Gaps in which the card
     waits for the host are not counted. The trace has been seen to drop an
-    event now and then, and once every event of a session: a dropped event
-    moves neither the mean nor the rounded count, and a session without
-    events is run again, up to three times. A short spin kernel before and
+    event now and then, and every event of a session, once three sessions
+    in a row: a dropped event moves neither the mean nor the rounded count,
+    and a session without events is run again after a pause, up to
+    PROFILE_TRIES times, each such session reported on stderr. A short spin
+    kernel before and
     after the calls, left out, keeps the trace's ends off them. Returns (ms,
     device operations per call)."""
     import os
@@ -289,7 +314,9 @@ def device_ms(torch, fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -314,6 +341,10 @@ def device_ms(torch, fn, reps):
         if sum(per_call.values()) > 0:
             us = sum(sum(v) / len(v) * per_call[k] for k, v in durs.items())
             return us / 1e3, sum(per_call.values())
+        cats = collections.Counter(ev.get("cat") for ev in events)
+        print(f"[profiler] session {attempt + 1} of {PROFILE_TRIES}: no "
+              f"device operation of the calls in the trace "
+              f"({dict(cats)})", file=sys.stderr, flush=True)
     raise AssertionError(f"the profiler's trace of {reps} calls holds no "
                          f"device operation")
 
@@ -362,11 +393,17 @@ def row_lerp_library_args(torch, rows, idx, groups):
             grid[None].expand(groups, Rq, Q, 2).contiguous())
 
 
-def march_ops(stats):
-    """K9's float operations on the inputs whose plain run filled ``stats``
-    (`fused_march.march_lit_fused_plain`): see MARCH_STEP_OPS."""
-    return (stats["steps"] * MARCH_STEP_OPS
-            + stats["samples"] * MARCH_SAMPLE_OPS)
+def march_bound(torch, args, kw, out, stats):
+    """``bound_ms``/``bound_by`` of one K9 call whose plain run filled
+    ``stats`` (`fused_march.march_lit_fused_plain`), and ``old_bound_ms``,
+    the first designs' (see MARCH_STEP_OPS)."""
+    steps = stats["steps"] * MARCH_STEP_OPS
+    ops = (steps + stats["samples"] * MARCH_SAMPLE_OPS
+           + stats["shaded"] * MARCH_SHADE_OPS)
+    old = steps + stats["samples"] * (MARCH_SAMPLE_OPS + MARCH_SHADE_OPS)
+    return dict(bound(torch, "march", [(args, kw, out)], ops=ops),
+                old_bound_ms=bound(torch, "march", [(args, kw, out)],
+                                   ops=old)["bound_ms"])
 
 
 def _bound(nbytes, ops):
@@ -634,6 +671,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
               f"pixels and plane with a hit mean {st['rounds_mean']:.2f} "
               f"({sums['warps_hit']} such), max {st['rounds_max']}, mean run "
               f"of equal texels along a row {st['run_mean']:.2f}", flush=True)
+        light_scan_bwd_faces(torch, calls["light_scan_bwd"][0], card)
     del calls, args, kw
 
     # The gradients against the all-plain path on the card.
@@ -674,12 +712,58 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
           "card gradients != CPU gradients on 24^3")
 
 
+def light_scan_bwd_faces(torch, path_call, card):
+    """K7 as one device kernel per call on the path's face, exactly its
+    plain version on K7_FACES, and its error on K7_TOO_LARGE."""
+    from tbraymarcherplugin_tpu_torch.ops import light_scan as K4
+
+    args, kw = path_call
+    _, n_path = device_ms(torch, lambda: K4.propagate_face_scan_bwd(*args,
+                                                                    **kw), 3)
+    # the wrapper makes a strided cotangent contiguous first (a copy)
+    args = tuple(a.contiguous() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    _, n_ops = device_ms(torch, lambda: K4.propagate_face_scan_bwd(*args,
+                                                                   **kw), 3)
+    print(f"[kernel] light_scan_bwd: {n_ops} device operation per call on "
+          f"the path's {tuple(args[1].shape)} face, contiguous ({n_path} with "
+          f"the path's own cotangent)", flush=True)
+    check(n_ops == 1, f"K7 took {n_ops} device operations for one face")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    alpha = torch.tensor(0.7, device="cuda")
+    for shape, off in K7_FACES:
+        op = torch.rand(shape, generator=gen, device="cuda") * 0.4
+        g = torch.randn(shape, generator=gen, device="cuda")
+        y = K4.propagate_face_scan(op, *off, alpha)
+        got = K4.propagate_face_scan_bwd(g, op, y, *off, alpha)
+        want = K4.propagate_face_scan_bwd_plain(g, op, y, *off, alpha)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ms, n_ops = device_ms(
+            torch, lambda: K4.propagate_face_scan_bwd(g, op, y, *off, alpha),
+            3)
+        print(f"[kernel] light_scan_bwd on a {shape} face, offsets {off}: "
+              f"max_abs_err {err:.3e} (limit 0) | {ms:.4f} ms on the device, "
+              f"{n_ops} device operations per call | {card}", flush=True)
+        check(err == 0.0, f"K7 != its plain version on a {shape} face")
+        check(n_ops == 1, f"K7 took {n_ops} device operations for one face")
+    big = torch.zeros(K7_TOO_LARGE, device="cuda")
+    try:
+        K4.propagate_face_scan_bwd(big, big, big, 0.5, 0.5, alpha)
+    except ValueError as e:
+        print(f"[kernel] light_scan_bwd on a {K7_TOO_LARGE} face raises: {e}",
+              flush=True)
+    else:
+        check(False, f"K7 did not raise on a {K7_TOO_LARGE} face")
+
+
 def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
                 results):
     """Phase 6 (see the module docstring); adds K9 to ``results``."""
     from tbraymarcherplugin_tpu_torch.models import pipeline as PP
     from tbraymarcherplugin_tpu_torch.ops import composite as K1
+    from tbraymarcherplugin_tpu_torch import renderer as R
     from tbraymarcherplugin_tpu_torch.ops import fused_march as K9
+    from tbraymarcherplugin_tpu_torch.ops import octree as O
     from tbraymarcherplugin_tpu_torch.ops import synthetic
     from tbraymarcherplugin_tpu_torch.ops import transfer as T
     from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
@@ -702,6 +786,16 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
             for i in range(4)]
     r = make_renderer()
     r.ensure_lighting()
+    # the occupancy grid K9 skips empty space by, built once per volume,
+    # window and TF (the second fly-through frame would build it)
+    occ, grid_ms = host_ms(torch, r.occupancy)
+    win = windowing.as_vec4(dev)
+    # a new volume builds the octree and the grid; a new window or TF the
+    # grid alone
+    octree_dev, _ = device_ms(
+        torch, lambda: O.build_octree(volume, max_value=1.0), 3)
+    grid_dev, _ = device_ms(torch, lambda: O.occupancy_grid(
+        r.octree, win, tf, mip=R.OCCUPANCY_MIP), 3)
     K1.composite.launches = 0
     K9.march_lit_fused.launches = 0
     frames, frame_ms = [], []
@@ -713,6 +807,10 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
                 "composite": K1.composite.launches}
     print(f"[march] fly-through launches {launches} | frames "
           f"{', '.join(f'{m:.2f}' for m in frame_ms)} ms (host clock) | "
+          f"occupancy grid {tuple(occ.grid.shape)} "
+          f"({float(occ.grid.float().mean()):.3f} occupied) built in "
+          f"{grid_ms:.2f} ms (host clock); on the device the octree "
+          f"{octree_dev:.4f} ms, the grid from it {grid_dev:.4f} ms | "
           f"{card}", flush=True)
     check(r._sw_plan is None, "the fly-through camera has a shear-warp plan")
     check(launches["march"] > 0, "kernel march was not launched by the march "
@@ -736,6 +834,7 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
                            ("bench camera", make_renderer(
                                march_impl="pallas"), cam)):
         calls = {}
+        rend.occupancy()  # as from its second frame on
         with capture_calls(calls, ["march"]):
             rend.render(c, WIDTH, HEIGHT)
         (args, kw), = calls["march"]
@@ -752,24 +851,48 @@ def march_phase(torch, volume, tf, windowing, light, cam, transform, card,
         plain_ms = cuda_ms(torch, lambda: K9.march_lit_fused_plain(*args,
                                                                     **kw), 1)
         timed[label] = (err, ms, plain_ms,
-                        bound(torch, "march", [(args, kw, got)],
-                              ops=march_ops(stats)), dev_ms)
+                        march_bound(torch, args, kw, got, stats), dev_ms)
         print(f"[kernel] march ({label}): max_abs_err {err:.3e} (limit "
               f"{LIMITS['march']:.0e}), pixels whose snap flipped {flips} | "
               f"kernel {ms:.3f} ms back to back, {dev_ms:.3f} ms on the "
               f"device | plain {plain_ms:.3f} ms | bound "
-              f"{timed[label][3]['bound_ms']:.3f} ms "
+              f"{timed[label][3]['bound_ms']:.4f} ms "
               f"({timed[label][3]['bound_by']}; {stats['steps']} steps, "
-              f"{stats['samples']} lit samples over {got[..., 0].numel()} "
-              f"rays) | coverage "
+              f"{stats['samples']} samples neither clipped nor cut, "
+              f"{stats['shaded']} of them of alpha above 0, over "
+              f"{got[..., 0].numel()} rays; the first designs' bound "
+              f"{timed[label][3]['old_bound_ms']:.4f} ms) | coverage "
               f"{float((want[..., 3] > 0.01).float().mean()):.3f} | {card}",
               flush=True)
+        print(f"[kernel] march ({label}) warps of 8x4 rays: "
+              f"{stats['warp_steps'] / stats['steps']:.3f} lane slots per "
+              f"step (the longest ray of each warp), "
+              f"{stats['samples'] / stats['warp_steps']:.3f} of them shade; "
+              f"steps fetched {stats['fetches'] / stats['steps']:.3f} "
+              f"({stats['warp_fetches'] / stats['steps']:.3f} in lane "
+              f"slots), in empty cells "
+              f"{stats.get('empty', 0) / stats['steps']:.3f}, cut "
+              f"{stats['cut'] / stats['steps']:.3f}, alpha 0 "
+              f"{stats['zero_alpha'] / stats['steps']:.3f}", flush=True)
+        results["march"].setdefault("work", {})[label] = stats
         check(err <= LIMITS["march"], "march disagrees with its plain version")
         del calls, args, kw, got, want, d
     err, ms, plain_ms, bnd, dev_ms = timed["fly-through"]
     results["march"].update(max_abs_err=max(t[0] for t in timed.values()),
                             ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                             library_ms=None, **bnd)
+
+    # empty-space skipping changes no bit of the frame (frame index 0)
+    bare = make_renderer(empty_space_skipping=False).render(cams[0], WIDTH,
+                                                            HEIGHT)
+    skip = make_renderer()
+    skip.occupancy()
+    skip = skip.render(cams[0], WIDTH, HEIGHT)
+    same = torch.equal(bare, skip)
+    print(f"[march] fly-through frame with empty-space skipping against one "
+          f"without: same bits {same}", flush=True)
+    check(same, "empty-space skipping changed the fly-through frame")
+    del bare, skip
 
     # the frame against the all-plain path (frame index 0 in both)
     rp = make_renderer()

@@ -50,10 +50,11 @@ SIGNATURES = {
     "tbr_tf_alpha": [_P, _P, _P, _P, ctypes.c_longlong, _F, _P],
     "tbr_tf_alpha_bwd": [_P] * 6 + [ctypes.c_longlong, _F, _I, _P],
     "tbr_light_scan": [_P, _P] + [_I] * 4 + [_F, _I, _F, _P, _P],
-    "tbr_light_scan_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _F, _I, _F, _I, _F]
-    + [_P, _P],
+    "tbr_light_scan_bwd": [_P] * 8 + [ctypes.c_ulonglong] + [_I] * 4
+    + [_F, _I, _F, _I, _F, _I, _F] + [_P, _P],
+    "tbr_light_scan_bwd_blocks": [_I, _I],
     "tbr_sum_rows": [_P, _P, _I, _I, _P],
-    "tbr_march": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    "tbr_march": [_P] * 7 + [_I] * 11 + [_F] * 6 + [_I, _P],
     "tbr_tf_rgba": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
     "tbr_tf_rgba_bwd": [_P] * 11 + [ctypes.c_longlong] * 2 + [_I, _P],
     "tbr_gather_probe": [_P] * 3 + [ctypes.c_longlong, _I, _P],
@@ -174,6 +175,15 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = _fns["tbr_error_string"](err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def query(name: str, *args) -> int:
+    """Call C function ``name`` that returns a number, not an error."""
+    fn = _fns.get(name)
+    if fn is None:
+        load()
+        fn = _fns[name]
+    return fn(*args)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -55,8 +55,8 @@ def _march_inputs(volume, rays: RayBatch, windowing_vec4, clip_center,
 
 
 def _plain_sample(volume, tf_table, light_volume, params, px, py, pz, sw):
-    """The kernel's `lit_sample` over all rays: (contributes, r, g, b,
-    alpha), rgb times light; masked samples add nothing."""
+    """The kernel's `lit_sample` over all rays: (clipped, cut, r, g, b,
+    alpha), rgb times light; a clipped or cut sample adds nothing."""
     center, width, low_c, high_c = params[0], params[1], params[2], params[3]
     ccx, ccy, ccz, cdx, cdy, cdz = params[4:10]
     dot = (px - ccx) * cdx + (py - ccy) * cdy + (pz - ccz) * cdz
@@ -74,30 +74,69 @@ def _plain_sample(volume, tf_table, light_volume, params, px, py, pz, sw):
     a = 1.0 - torch.exp(sw * torch.log(torch.clamp(1.0 - ca, min=1e-10)))
     light = trilinear_sample(light_volume, torch.stack(
         [px.clamp(0.0, 1.0), py.clamp(0.0, 1.0), pz.clamp(0.0, 1.0)], -1))
-    ok = ~(dot <= 0.0) & ~cut
-    return ok, c[..., 0] * light, c[..., 1] * light, c[..., 2] * light, a
+    return (dot <= 0.0, cut, c[..., 0] * light, c[..., 1] * light,
+            c[..., 2] * light, a)
+
+
+def _cells_occupied(occupancy, px, py, pz) -> torch.Tensor:
+    """The occupancy grid's cell of each position, as the kernel reads it:
+    ``floor(p * cell_scale)`` per axis, clamped to the grid (a NaN to 0)."""
+    grid = occupancy.grid
+    idx = [torch.floor(p * float(s)).nan_to_num(0.0).clamp(0, n - 1).long()
+           for p, s, n in zip((px, py, pz), occupancy.cell_scale, grid.shape)]
+    return grid[idx[0], idx[1], idx[2]]
+
+
+def _per_warp_max_sum(counts: torch.Tensor) -> int:
+    """Sum over the kernel's warps (tiles of 4 rows of 8 pixels in a 16x16
+    block) of 32 times the warp's largest per-ray count of the (H, W)
+    ``counts``."""
+    h, w = counts.shape
+    c = torch.nn.functional.pad(counts, (0, -w % 8, 0, -h % 4))
+    return 32 * int(c.reshape(c.shape[0] // 4, 4, c.shape[1] // 8, 8)
+                    .amax(dim=(1, 3)).sum())
 
 
 def _march_plain(ch, volume, light_volume, tf_table, params,
                  step_count: int, early_termination: float,
-                 compat_final_step: bool, stats: dict | None = None
-                 ) -> torch.Tensor:
+                 compat_final_step: bool, stats: dict | None = None,
+                 occupancy=None) -> torch.Tensor:
     """The kernel's march over the (8, H, W) fields ``ch`` -> (H, W, 4),
     one PyTorch operation per step of the kernel, all rays at once, with
-    masks in place of the kernel's per-ray loop bound and exit. ``stats``,
-    when given, receives the work the kernel does on these inputs (see
+    masks in place of the kernel's per-ray loop bound and exit. A sample in
+    a cell that ``occupancy`` marks empty is skipped, as the kernel skips
+    it; its alpha is 0, so it would add exactly nothing. ``stats``, when
+    given, receives the work the kernel does on these inputs (see
     :func:`march_lit_fused_plain`)."""
     p0x, p0y, p0z, svx, svy, svz, n_full, ff = ch.unbind(0)
     step_world = VOLUME_DENSITY * (1.0 / step_count)
     rr, rg, rb, alpha = (torch.zeros_like(n_full) for _ in range(4))
     term = torch.zeros_like(n_full, dtype=torch.bool)
     one = torch.ones_like(alpha)
-    steps = samples = 0
+    keys = ("steps", "samples", "shaded", "fetches", "cut", "zero_alpha")
+    if occupancy is not None:
+        keys += ("empty",)
+    count = (None if stats is None else
+             {k: torch.zeros_like(n_full, dtype=torch.int32) for k in keys})
 
-    def composite(m, sample):
-        ok, cr, cg, cb, a = sample
-        m = m & ok
+    def composite(live, pos, sw):
+        clipped, cut, cr, cg, cb, a = _plain_sample(
+            volume, tf_table, light_volume, params, *pos, sw)
+        fetch = live & ~clipped
+        if occupancy is not None:
+            occupied = _cells_occupied(occupancy, *pos)
+            if stats is not None:
+                count["empty"] += fetch & ~occupied
+            fetch = fetch & occupied
+        m = fetch & ~cut
         trans = 1.0 - alpha
+        if stats is not None:
+            count["steps"] += live
+            count["samples"] += live & ~clipped & ~cut  # the bound's counts
+            count["shaded"] += live & ~clipped & ~cut & (a > 0.0)
+            count["fetches"] += fetch
+            count["cut"] += fetch & cut
+            count["zero_alpha"] += m & (a == 0.0)
         return (m, torch.where(m, rr + cr * a * trans, rr),
                 torch.where(m, rg + cg * a * trans, rg),
                 torch.where(m, rb + cb * a * trans, rb),
@@ -107,13 +146,8 @@ def _march_plain(ch, volume, light_volume, tf_table, params,
         kk = float(k + 1)
         live = (k < n_full) & ~term
         m, rr, rg, rb, alpha = composite(
-            live,
-            _plain_sample(volume, tf_table, light_volume, params,
-                          p0x + svx * kk, p0y + svy * kk, p0z + svz * kk,
-                          step_world))
-        if stats is not None:
-            steps = steps + live.sum()
-            samples = samples + m.sum()
+            live, (p0x + svx * kk, p0y + svy * kk, p0z + svz * kk),
+            step_world)
         hit = m & (alpha > early_termination)  # the snap ends the ray
         alpha = torch.where(hit, one, alpha)
         term = term | hit
@@ -121,14 +155,13 @@ def _march_plain(ch, volume, light_volume, tf_table, params,
             break  # every ray is done: the kernel's threads have all exited
     kk = n_full + ff
     sw = VOLUME_DENSITY * ff if compat_final_step else step_world * ff
-    live = ~term & (ff > 0.0)
     m, rr, rg, rb, alpha = composite(
-        live,
-        _plain_sample(volume, tf_table, light_volume, params,
-                      p0x + svx * kk, p0y + svy * kk, p0z + svz * kk, sw))
+        ~term & (ff > 0.0), (p0x + svx * kk, p0y + svy * kk, p0z + svz * kk),
+        sw)
     if stats is not None:
-        stats["steps"] = int(steps + live.sum())
-        stats["samples"] = int(samples + m.sum())
+        stats.update({k: int(v.sum()) for k, v in count.items()})
+        for k in ("steps", "samples", "fetches"):
+            stats["warp_" + k] = _per_warp_max_sum(count[k])
     return torch.stack([rr, rg, rb, alpha], -1)
 
 
@@ -136,30 +169,45 @@ def march_lit_fused_plain(volume, tf_table, light_volume, rays: RayBatch,
                           windowing_vec4, clip_center, clip_direction,
                           jitter=None, step_count: int = 150,
                           early_termination: float = EARLY_TERMINATION_ALPHA,
-                          compat_final_step: bool = True,
+                          compat_final_step: bool = True, occupancy=None,
                           stats: dict | None = None) -> torch.Tensor:
     """K9's arithmetic in plain PyTorch; see :func:`march_lit_fused`.
 
-    ``stats``, when given, receives the kernel's work on these inputs:
-    ``"steps"``, the samples its threads take (every step up to a ray's
-    termination or exit, and the final fractional sample of a ray that did
-    not terminate), and ``"samples"``, those of them that are neither
-    clipped nor cut and so are looked up, lit and composited."""
+    ``stats``, when given, receives the kernel's work on these inputs, as
+    counts of samples: ``"steps"``, those its threads take (every step up to
+    a ray's termination or exit, and the final fractional sample of a ray
+    that did not terminate); ``"samples"``, those of them that are neither
+    clipped nor cut, which the bound charges with a fetch and a lookup;
+    ``"shaded"``, those of them whose alpha is above 0, which it also
+    charges with the light and the composite; ``"fetches"``, those whose
+    volume the kernel reads (not clipped, and with ``occupancy`` not in an
+    empty cell; ``"empty"`` counts the latter); of these ``"cut"``, cut by
+    the window, and
+    ``"zero_alpha"``, composited with alpha 0. ``"warp_steps"``,
+    ``"warp_samples"`` and ``"warp_fetches"`` sum over the kernel's warps 32
+    times the warp's largest per-ray count: the lane slots a warp issues
+    while its longest ray runs."""
     ch, params = _march_inputs(volume, rays, windowing_vec4, clip_center,
                                clip_direction, jitter, step_count)
     return _march_plain(ch, volume, light_volume, tf_table, params,
                         step_count, early_termination, compat_final_step,
-                        stats)
+                        stats, occupancy)
 
 
 def march_lit_fused(volume, tf_table, light_volume, rays: RayBatch,
                     windowing_vec4, clip_center, clip_direction, jitter=None,
                     step_count: int = 150,
                     early_termination: float = EARLY_TERMINATION_ALPHA,
-                    compat_final_step: bool = True) -> torch.Tensor:
+                    compat_final_step: bool = True,
+                    occupancy=None) -> torch.Tensor:
     """The lit march of an (H, W) ray batch -> (H, W, 4) RGBA (the
     arguments of `march.march_lit`): K9 for CUDA tensors,
-    :func:`march_lit_fused_plain` for CPU tensors. Forward only."""
+    :func:`march_lit_fused_plain` for CPU tensors. Forward only.
+
+    ``occupancy``: an `octree.OccupancyGrid` of this volume, window and TF
+    (`octree.occupancy_grid`, whose ranges `octree.LERP_MARGIN` widens);
+    the march skips the samples in the cells it marks empty, which changes
+    no bit of the frame."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (volume, tf_table, light_volume, windowing_vec4,
@@ -170,7 +218,7 @@ def march_lit_fused(volume, tf_table, light_volume, rays: RayBatch,
             "march.march_lit_blocked or march.march_lit.")
     args = (volume, tf_table, light_volume, rays, windowing_vec4, clip_center,
             clip_direction, jitter, step_count, early_termination,
-            compat_final_step)
+            compat_final_step, occupancy)
     if volume.device.type == "cpu":
         return march_lit_fused_plain(*args)
     dev = volume.device
@@ -184,15 +232,23 @@ def march_lit_fused(volume, tf_table, light_volume, rays: RayBatch,
         raise ValueError(f"tf_table must be (256, 4), got {tf_table.shape}")
     if volume.dim() != 3 or light_volume.dim() != 3:
         raise ValueError("volume and light_volume must be 3-D")
+    grid, scale = None, (0.0, 0.0, 0.0)
+    if occupancy is not None:
+        grid, scale = occupancy.grid.contiguous(), occupancy.cell_scale
+        _kernels.check(grid, "occupancy grid", torch.bool, dev)
+        if grid.dim() != 3:
+            raise ValueError("the occupancy grid must be 3-D")
     _, h, w = ch.shape
     out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
     _kernels.launch(
         "tbr_march", ch.data_ptr(), volume.data_ptr(),
         light_volume.data_ptr(), tf_table.data_ptr(), params.data_ptr(),
-        out.data_ptr(), h, w, *volume.shape, *light_volume.shape,
+        None if grid is None else grid.data_ptr(), out.data_ptr(), h, w,
+        *volume.shape, *light_volume.shape,
+        *(grid.shape if grid is not None else (0, 0, 0)),
         VOLUME_DENSITY * (1.0 / step_count), VOLUME_DENSITY,
-        float(early_termination), int(bool(compat_final_step)),
-        _kernels.stream_of(ch),
+        float(early_termination), *(float(x) for x in scale),
+        int(bool(compat_final_step)), _kernels.stream_of(ch),
     )
     march_lit_fused.launches += 1
     return out

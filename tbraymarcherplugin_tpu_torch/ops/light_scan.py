@@ -3,9 +3,10 @@ adjoint.
 
 Counterpart of `tbraymarcherplugin_tpu/ops/pallas_lighting.py::
 propagate_face_scan` (forward and custom VJP). :func:`propagate_face_scan`
-launches `csrc/light_scan.cu` and :func:`propagate_face_scan_bwd` launches
-`csrc/light_scan_bwd.cu` for CUDA tensors (one launch per slice, issued by a
-host loop in C); for CPU tensors each runs its ``_plain`` version.
+launches `csrc/light_scan.cu` (one launch per slice, issued by a host loop
+in C) and :func:`propagate_face_scan_bwd` launches `csrc/light_scan_bwd.cu`
+(one launch per face) for CUDA tensors; for CPU tensors each runs its
+``_plain`` version.
 :func:`propagate_face_scan_vjp` is the differentiable scan: gradients flow
 to the opacities and to ``light_alpha`` (intensity times face weight),
 which the kernels read from device memory; the offsets are geometry and
@@ -128,9 +129,30 @@ def propagate_face_scan_bwd_plain(g, opacity_scan, y, off_px, off_py,
     return d_op, msum, m
 
 
+# K7's blocks wait for their neighbours through counters that persist
+# between calls: (device, stream) -> [int64 counters, the value they reached]
+_BWD_FLAGS: dict = {}
+_BWD_FLAG_COUNT = 1024  # at least the blocks of a launch: one per SM
+
+
+def _bwd_flags(dev, stream: int, steps: int):
+    """The counters of K7's launches on ``stream`` and the base of the next
+    launch of ``steps`` slices (see `csrc/light_scan_bwd.cu`); zero-filled
+    once per device and stream."""
+    key = (dev.index, stream)
+    state = _BWD_FLAGS.get(key)
+    if state is None:
+        state = _BWD_FLAGS[key] = [
+            torch.zeros(_BWD_FLAG_COUNT, dtype=torch.int64, device=dev), 0]
+    base = state[1]
+    state[1] += steps
+    return state[0], base
+
+
 def propagate_face_scan_bwd(g, opacity_scan, y, off_px, off_py, light_alpha):
     """Adjoint of :func:`propagate_face_scan`; see
-    :func:`propagate_face_scan_bwd_plain`."""
+    :func:`propagate_face_scan_bwd_plain`. On the card, one launch of K7
+    per face, up to 1024x1024 on an H100; a larger face raises."""
     if opacity_scan.device.type == "cpu":
         return propagate_face_scan_bwd_plain(g, opacity_scan, y, off_px,
                                              off_py, light_alpha)
@@ -140,23 +162,33 @@ def propagate_face_scan_bwd(g, opacity_scan, y, off_px, off_py, light_alpha):
         _kernels.check(t, name, torch.float32, dev)
     if g.shape != op.shape or y.shape != op.shape:
         raise ValueError("g, y and the opacities differ in shape")
-    alpha = _alpha_tensor(light_alpha, dev).contiguous()
     K, H, W = op.shape
+    with torch.cuda.device(dev):
+        blocks = _kernels.query("tbr_light_scan_bwd_blocks", H, W)
+    if blocks == 0 or blocks > _BWD_FLAG_COUNT:
+        raise ValueError(
+            f"propagate_face_scan_bwd (kernel K7): a {H}x{W} face is too "
+            f"large for one launch of at most one block per SM, 8 pixels a "
+            f"thread (see csrc/light_scan_bwd.cu)")
+    alpha = _alpha_tensor(light_alpha, dev).contiguous()
     ix, fx = _split_offset(off_px)
     iy, fy = _split_offset(off_py)
     jx, hx = _split_offset(-np.float32(off_px))
     jy, hy = _split_offset(-np.float32(off_py))
     d_op = torch.empty_like(op)
-    msum = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    msum = torch.empty((H, W), dtype=torch.float32, device=dev)
+    m0 = torch.empty((H, W), dtype=torch.float32, device=dev)
     mbuf = torch.empty((2, H, W), dtype=torch.float32, device=dev)
+    stream = _kernels.stream_of(op)
+    flags, base = _bwd_flags(dev, stream, K)
     _kernels.launch(
         "tbr_light_scan_bwd", g.data_ptr(), op.data_ptr(), y.data_ptr(),
-        d_op.data_ptr(), msum.data_ptr(), mbuf.data_ptr(), K, H, W, ix,
-        float(fx), iy, float(fy), jx, float(hx), jy, float(hy),
-        alpha.data_ptr(), _kernels.stream_of(op),
+        d_op.data_ptr(), msum.data_ptr(), m0.data_ptr(), mbuf.data_ptr(),
+        flags.data_ptr(), base, K, H, W, ix, float(fx), iy, float(fy), jx,
+        float(hx), jy, float(hy), alpha.data_ptr(), stream,
     )
     propagate_face_scan_bwd.launches += 1
-    return d_op, msum, mbuf[0]
+    return d_op, msum, m0
 
 
 propagate_face_scan_bwd.launches = 0

@@ -27,6 +27,11 @@ from .sampling import (VOLUME_DENSITY, is_clipped,
 from .transfer import windowed_tf_range_occupied
 
 NUM_MIPS = 4  # `OctreeShaders.cpp:45` binds NumMips = 4
+# A rounded lerp a * (1 - f) + b * f can land an ulp or two outside
+# [min(a, b), max(a, b)], so a trilinear sample (three levels of lerps) can
+# leave its voxels' range by a few ulps of their magnitude. A range widened
+# by 2^-18 of its magnitude (64 ulps) holds every sample the march takes.
+LERP_MARGIN = 2.0 ** -18
 
 
 class Octree(NamedTuple):
@@ -152,12 +157,19 @@ def occupancy_grid(octree: Octree, windowing_vec4, tf_table: torch.Tensor,
     :func:`.transfer.windowed_tf_range_occupied` answers whether any value
     of that range has a windowed-TF alpha above 0. Cells that cover only
     pow2 padding are dropped: the march clamps cell indices to the data.
+    Each range is widened by ``LERP_MARGIN`` of its magnitude before the
+    test, so the grid also holds against the rounding of the lerps and a
+    march that skips its empty cells changes no bit
+    (`fused_march.march_lit_fused`): it holds every cell of the JAX
+    package's grid, which has no margin, and may hold a few more.
     """
     if mip < 1:
         raise ValueError("mip must be >= 1 so cells are wider than the "
                          "trilinear footprint after 3^3 dilation")
     mn = _dilate3(octree.min_mips[mip], "min")
     mx = _dilate3(octree.mips[mip], "max")
+    pad = LERP_MARGIN * torch.maximum(mn.abs(), mx.abs())
+    mn, mx = mn - pad, mx + pad
     win = torch.as_tensor(windowing_vec4, dtype=torch.float32,
                           device=mn.device)
     occ = windowed_tf_range_occupied(mn, mx, win, tf_table)

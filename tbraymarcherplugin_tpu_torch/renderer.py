@@ -44,6 +44,10 @@ from .utils.volume_info import VolumeInfo, WindowingParameters
 
 RENDER_MODES = ("lit", "intensity", "octree")
 MARCH_IMPLS = ("auto", "shearwarp", "pallas", "blocked", "scan")
+# The occupancy grid's cells are 2^OCCUPANCY_MIP voxels wide: the finest
+# that `octree.occupancy_grid` takes. Finer cells hold more of K9's empty
+# steps; the blocked march takes the same time at mip 1 and 3 (PERF.md).
+OCCUPANCY_MIP = 1
 
 
 @dataclasses.dataclass
@@ -67,8 +71,11 @@ class RendererConfig:
       `march.march_lit_tiled`/`march_lit_blocked`, "scan" through
       `march.march_lit`; the intensity and octree modes march through
       `march.march_intensity` and `octree.march_octree` for every value.
-    - ``empty_space_skipping``: the "blocked" march skips blocks that the
-      occupancy grid (`ops/octree.py`) proves empty; exact for the image.
+    - ``empty_space_skipping``: the march skips what the occupancy grid
+      (`ops/octree.py`) proves empty: K9 its samples, the "blocked" march
+      its blocks; exact for the image. The grid is built on the second
+      frame after the volume, window or TF changes, so that a drag, which
+      changes them every frame, does not rebuild it every frame.
     """
 
     step_count: int = 150
@@ -136,10 +143,12 @@ class Renderer(nn.Module):
         self._sw_key = None
         self._sw_plan = None
         # the occupancy grid of empty-space skipping, built from the octree
-        # on first use and dropped when the volume, TF or window changes
+        # on the second frame with the same volume, TF and window
+        # (`_occ_due`) and dropped when they change
         self.octree: Optional[O.Octree] = None
         self._octree_dirty = True
         self._occ: Optional[O.OccupancyGrid] = None
+        self._occ_due = False
 
     @property
     def device(self) -> torch.device:
@@ -179,34 +188,34 @@ class Renderer(nn.Module):
                                                  device=self.device)
         self._lights_dirty = True
         self._octree_dirty = True
-        self._occ = None
+        self._drop_occupancy()
 
     def set_tf(self, tf_table):
         self.tf_table = torch.as_tensor(tf_table, dtype=torch.float32,
                                         device=self.device)
         self._lights_dirty = True
-        self._occ = None
+        self._drop_occupancy()
 
     def set_window_center(self, center):
         self.windowing = dataclasses.replace(self.windowing, center=center)
         self._lights_dirty = True
-        self._occ = None
+        self._drop_occupancy()
 
     def set_window_width(self, width):
         self.windowing = dataclasses.replace(self.windowing, width=width)
         self._lights_dirty = True
-        self._occ = None
+        self._drop_occupancy()
 
     def set_low_cutoff(self, enabled: bool):
         self.windowing = dataclasses.replace(self.windowing, low_cutoff=enabled)
         self._lights_dirty = True
-        self._occ = None
+        self._drop_occupancy()
 
     def set_high_cutoff(self, enabled: bool):
         self.windowing = dataclasses.replace(self.windowing,
                                              high_cutoff=enabled)
         self._lights_dirty = True
-        self._occ = None
+        self._drop_occupancy()
 
     def set_transform(self, transform: VolumeTransform):
         self.transform = transform
@@ -428,6 +437,21 @@ class Renderer(nn.Module):
         )
         return warp_to_screen_fused(inter, plan, width, height)
 
+    def _drop_occupancy(self):
+        self._occ = None
+        self._occ_due = False
+
+    def occupancy(self) -> O.OccupancyGrid:
+        """The occupancy grid of empty-space skipping for the current
+        volume, window and TF (with `octree.LERP_MARGIN`, so skipping is
+        exact to the bit), built from the octree on first use."""
+        if self._occ is None:
+            self.ensure_octree(force=True)
+            self._occ = O.occupancy_grid(
+                self.octree, self.windowing.as_vec4(self.device),
+                self.tf_table, mip=OCCUPANCY_MIP)
+        return self._occ
+
     def _render_lit(self, rays, jitter):
         """The lit ray march of ``rays`` by ``march_impl``."""
         cfg = self.config
@@ -440,16 +464,20 @@ class Renderer(nn.Module):
                   compat_final_step=cfg.compat_final_step)
         if cfg.march_impl == "scan":
             return M.march_lit(*args, **kw)
+        occ = None
+        if cfg.empty_space_skipping:
+            # a window drag changes the grid every frame, and its rebuild
+            # costs more than K9 saves by it in one frame (PERF.md)
+            if self._occ is not None or self._occ_due:
+                occ = self.occupancy()
+            self._occ_due = True
         if cfg.march_impl != "blocked":
             # "auto", "shearwarp" and "pallas": K9, which has no window limit
-            return FM.march_lit_fused(*args, **kw)
+            return FM.march_lit_fused(*args, **kw, occupancy=occ)
         ess = {}
-        if cfg.empty_space_skipping:
-            if self._occ is None:
-                self.ensure_octree(force=True)
-                self._occ = O.occupancy_grid(self.octree, win, self.tf_table)
-            ess = dict(occ_grid=self._occ.grid,
-                       occ_scale=self._occ.cell_scale, skip_blocks=True)
+        if occ is not None:
+            ess = dict(occ_grid=occ.grid, occ_scale=occ.cell_scale,
+                       skip_blocks=True)
         if rays.thickness.numel() > M.DEFAULT_TILE_SIZE or ess:
             return M.march_lit_tiled(
                 *args, tile2d=(32, 32) if rays.thickness.dim() == 2 else None,

@@ -1,4 +1,4 @@
-"""Hold the composite kernels K1 and K5 of this checkout against another
+"""Hold the kernels K1, K5, K7 and K9 of this checkout against another
 checkout's build of them, on the main path's own inputs.
 
     python -m tbraymarcherplugin_tpu_torch.tools.compare_kernels OTHER
@@ -8,14 +8,24 @@ the kernel table and the timers from ``chip_smoke.py``. ``OTHER`` is the
 root of another checkout (an earlier commit, unpacked with ``git
 archive``); its ``tbraymarcherplugin_tpu_torch`` is imported under another
 name and builds its kernels into its own ``_build/``. The inputs are those
-of ``chip_smoke.py``'s phases 4 (lit K1 with jitter), 5 (K5 of the fused
-fwd+bwd step) and 10 (K1's intensity, unlit and λ-ceiling variants). For
-each kernel it prints whether both builds give the same bits (K1's output;
-K5's dW and dL, and the largest difference of d TF and d window over
-their largest value, which sum in another order), and the device time of
-each (``chip_smoke.device_ms``), taken in turns: other, this, this, other.
+of ``chip_smoke.py``'s phases 4 (lit K1 with jitter), 5 (K5 and the first
+face's K7 of the fused fwd+bwd step), 6 (K9 at the fly-through camera and
+at the bench camera forced to march; this checkout's call keeps the
+occupancy grid the path gave it, the other's goes without where its
+wrapper takes none) and 10 (K1's intensity, unlit and λ-ceiling
+variants). For each kernel it prints whether both builds give the same
+bits (K1's and K9's output; K7's d opacity, sum m and m_0; K5's dW and dL,
+and the largest difference of d TF and d window over their largest value,
+which sum in another order), and the device time of each
+(``chip_smoke.device_ms``), taken in turns: other, this, this, other.
 Then the peak device memory of one fused fwd+bwd step through each K5.
-The last line is one JSON object of it all. Needs a CUDA device.
+Then the renderer at the fly-through camera: a window drag, each frame
+after a new window center (which rebuilds the illumination and, with
+empty-space skipping, the occupancy grid), through the other checkout's
+renderer, this one's and this one's without skipping, in turns; and this
+one's "blocked" march with the grid at mip 1 and at mip 3, in turns, with
+each grid's build. The last line is one JSON object of it all. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ from __future__ import annotations
 import contextlib
 import importlib
 import importlib.util
+import inspect
+import itertools
 import json
 import math
 import subprocess
@@ -33,9 +45,9 @@ from unittest import mock
 import torch
 
 
-def load_other(root) -> tuple:
-    """The ``ops.composite`` and ``ops.shearwarp_grad`` modules of the
-    checkout at ``root``, imported as the package ``other_port``."""
+def load_other(root) -> dict:
+    """kernel name -> (module, wrapper) of the checkout at ``root``,
+    imported as the package ``other_port``."""
     pkg = Path(root).resolve() / "tbraymarcherplugin_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         "other_port", pkg / "__init__.py",
@@ -43,13 +55,105 @@ def load_other(root) -> tuple:
     mod = importlib.util.module_from_spec(spec)
     sys.modules["other_port"] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module("other_port.ops.composite"),
-            importlib.import_module("other_port.ops.shearwarp_grad"))
+    return {name: (importlib.import_module("other_port.ops." + mod), fn)
+            for name, mod, fn in WRAPPERS}
+
+
+# kernel name -> the module under ``ops`` and the wrapper that launches it
+WRAPPERS = (("composite", "composite", "composite"),
+            ("composite_bwd", "shearwarp_grad", "composite_bwd"),
+            ("light_scan_bwd", "light_scan", "propagate_face_scan_bwd"),
+            ("march", "fused_march", "march_lit_fused"))
+
+
+# the window centers a drag alternates between, one per frame
+DRAG_CENTERS = (0.5, 0.505)
+BLOCKED_MIPS = (3, 1, 1, 3)
+
+
+def renderer_phases(CS, dev, card) -> dict:
+    """Device ms and host ms per fly-through frame under a window drag
+    through the other checkout's renderer (``other_port``), this one's and
+    this one's without empty-space skipping, in turns; device ms of this
+    one's "blocked" march frame with the grid at each of BLOCKED_MIPS, and
+    of that grid's build."""
+    from .. import renderer as R
+    from ..ops import octree as O
+    from ..ops import synthetic
+
+    volume = torch.from_numpy(synthetic.ct_like_phantom(CS.DIMS, seed=0)).to(
+        dev)
+
+    def make(pkg, **cfg):
+        S = importlib.import_module(pkg + ".scene")
+        Rm = importlib.import_module(pkg + ".renderer")
+        T = importlib.import_module(pkg + ".ops.transfer")
+        V = importlib.import_module(pkg + ".utils.volume_info")
+        r = Rm.Renderer(volume, tf_table=T.tf_ct_bone(device=dev),
+                        windowing=V.WindowingParameters(*CS.WINDOW),
+                        transform=S.VolumeTransform.create(),
+                        config=Rm.RendererConfig(step_count=CS.STEPS,
+                                                 jitter=True, **cfg),
+                        device=dev)
+        r.add_light("sun", S.DirLight.create(CS.LIGHT_DIR, 1.0))
+        cam = S.Camera.look_at(CS.FLY_POS, (0.0, 0.0, 0.0),
+                               fov_degrees=CS.FLY_FOV)
+        return r, cam
+
+    def drag_frame(pkg, **cfg):
+        r, cam = make(pkg, **cfg)
+        n = itertools.count()
+
+        def frame():
+            r.set_window_center(DRAG_CENTERS[next(n) % 2])
+            return r.render(cam, CS.WIDTH, CS.HEIGHT)
+        return frame
+
+    here = __package__.rsplit(".", 1)[0]
+    variants = {"other": ("other_port", {}), "this": (here, {}),
+                "this, no skipping": (here,
+                                      dict(empty_space_skipping=False))}
+    drag = {k: {"device_ms": [], "host_ms": []} for k in variants}
+    for who in ("other", "this", "this, no skipping", "this, no skipping",
+                "this", "other"):
+        frame = drag_frame(variants[who][0], **variants[who][1])
+        drag[who]["device_ms"].append(CS.device_ms(torch, frame, 3)[0])
+        host = [CS.host_ms(torch, frame)[1] for _ in range(3)]
+        drag[who]["host_ms"].append(sum(host) / len(host))
+    for who, t in drag.items():
+        print(f"[compare] fly-through frame under a window drag, {who}: "
+              f"device ms {', '.join(f'{x:.4f}' for x in t['device_ms'])}, "
+              f"host ms {', '.join(f'{x:.2f}' for x in t['host_ms'])} | "
+              f"{card}", flush=True)
+
+    blocked = {m: {"frame_device_ms": [], "grid_device_ms": []}
+               for m in set(BLOCKED_MIPS)}
+    for mip in BLOCKED_MIPS:
+        with mock.patch.object(R, "OCCUPANCY_MIP", mip):
+            r, cam = make(here, march_impl="blocked")
+            occ = r.occupancy()
+            win = r.windowing.as_vec4(dev)
+            blocked[mip]["frame_device_ms"].append(CS.device_ms(
+                torch, lambda: r.render(cam, CS.WIDTH, CS.HEIGHT), 2)[0])
+            blocked[mip]["grid_device_ms"].append(CS.device_ms(
+                torch, lambda: O.occupancy_grid(r.octree, win, r.tf_table,
+                                                mip=mip), 3)[0])
+            blocked[mip]["occupied"] = float(occ.grid.float().mean())
+        del r
+    for mip, t in sorted(blocked.items()):
+        print(f"[compare] blocked march frame, grid at mip {mip} "
+              f"({t['occupied']:.3f} occupied): device ms "
+              f"{', '.join(f'{x:.3f}' for x in t['frame_device_ms'])}; the "
+              f"grid's build "
+              f"{', '.join(f'{x:.4f}' for x in t['grid_device_ms'])} | "
+              f"{card}", flush=True)
+    return dict(fly_through_drag=drag,
+                blocked_march={str(m): t for m, t in blocked.items()})
 
 
 def path_inputs(CS, dev) -> dict:
-    """name -> (args, kwargs) of the K1 and K5 calls of chip_smoke's phases
-    4, 5 and 10 at the bench scene."""
+    """name -> (args, kwargs) of the K1, K5, K7 and K9 calls of chip_smoke's
+    phases 4, 5, 6 and 10 at the bench scene."""
     from ..ops import composite as K1
     from ..ops import lighting as Lt
     from ..ops import shearwarp as SW
@@ -84,15 +188,33 @@ def path_inputs(CS, dev) -> dict:
         volume, tf, light_volume, plan, win, clip.center, clip.direction,
         jitter=jit))
 
-    # phase 5: K5 of a fused fwd+bwd step
+    # phase 5: K5 and the first face's K7 of a fused fwd+bwd step
     step = CS.make_fwd_bwd_step(
         torch, volume, cam, transform, clip, CS.WIDTH, CS.HEIGHT,
         dict(march_impl="shearwarp", shearwarp_tf_unit="fused",
              shearwarp_dtype=None), max_planes=CS.STEPS)
     got = {}
-    with CS.capture_calls(got, ["composite_bwd"]):
+    with CS.capture_calls(got, ["composite_bwd", "light_scan_bwd"]):
         step(CS.FWD_BWD_CENTERS[0])
     calls["composite_bwd"] = got["composite_bwd"][0]
+    calls["light_scan_bwd"] = got["light_scan_bwd"][0]
+
+    # phase 6: K9 at the fly-through camera and at the bench camera forced
+    # to march
+    fly = Camera.look_at(CS.FLY_POS, (0.0, 0.0, 0.0),
+                         fov_degrees=CS.FLY_FOV)
+    for name, c, impl in (("march", fly, "auto"),
+                          ("march_bench_camera", cam, "pallas")):
+        r = Renderer(volume, tf_table=tf, windowing=windowing,
+                     transform=transform,
+                     config=RendererConfig(step_count=CS.STEPS, jitter=True,
+                                           march_impl=impl), device=dev)
+        r.add_light("sun", light)
+        r.occupancy()  # the grid of its second frame on
+        got = {}
+        with CS.capture_calls(got, ["march"]):
+            r.render(c, CS.WIDTH, CS.HEIGHT)
+        calls[name] = got["march"][0]
 
     # phase 10: the intensity, octree and λ-ceiling frames' K1 calls
     radius = math.hypot(CS.CAM_POS[0], CS.CAM_POS[1])
@@ -127,9 +249,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path.cwd()))
     import chip_smoke as CS
 
-    from ..ops import composite as K1
-    from ..ops import shearwarp_grad as K5
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -137,31 +256,42 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    o1, o5 = load_other(argv[0])
+    other = load_other(argv[0])
+    mine = {name: (importlib.import_module(
+        f"tbraymarcherplugin_tpu_torch.ops.{mod}"), fn)
+        for name, mod, fn in WRAPPERS}
     calls, step = path_inputs(CS, dev)
     result = {}
     with torch.no_grad():
         for name, (args, kw) in calls.items():
-            mine, other = ((K5.composite_bwd, o5.composite_bwd)
-                           if name == "composite_bwd"
-                           else (K1.composite, o1.composite))
-            a, b = mine(*args, **kw), other(*args, **kw)
-            if name == "composite_bwd":
+            kernel = name if name in mine else (
+                "march" if name.startswith("march") else "composite")
+            (mod, fn), (omod, ofn) = mine[kernel], other[kernel]
+            this_fn, other_fn = getattr(mod, fn), getattr(omod, ofn)
+            okw = dict(kw)
+            if (kernel == "march" and "occupancy" not in
+                    inspect.signature(other_fn).parameters):
+                okw.pop("occupancy", None)
+            a, b = this_fn(*args, **kw), other_fn(*args, **okw)
+            if kernel == "composite_bwd":
                 same = all(torch.equal(x, y) for x, y in zip(a[:2], b[:2]))
                 rel = max(float((x - y).abs().max() / y.abs().max())
                           for x, y in zip(a[2:], b[2:]))
+            elif kernel == "light_scan_bwd":
+                same = all(torch.equal(x, y) for x, y in zip(a, b))
+                rel = max(float((x - y).abs().max()) for x, y in zip(a, b))
             else:
                 same, rel = torch.equal(a, b), float((a - b).abs().max())
             del a, b
             times = {"other": [], "this": []}
             for who in ("other", "this", "this", "other"):
-                fn = mine if who == "this" else other
+                f, k = (this_fn, kw) if who == "this" else (other_fn, okw)
                 times[who].append(CS.device_ms(
-                    torch, lambda fn=fn: fn(*args, **kw), 5)[0])
+                    torch, lambda f=f, k=k: f(*args, **k), 5)[0])
             result[name] = dict(same_bits=same, other_diff=rel,
                                 device_ms=times["this"],
                                 other_device_ms=times["other"])
-            what = ("d TF, d window relative" if name == "composite_bwd"
+            what = ("d TF, d window relative" if kernel == "composite_bwd"
                     else "max abs")
             print(f"[compare] {name}: same bits as the other build {same} "
                   f"({what} difference {rel:.3e}) | device ms this "
@@ -170,6 +300,8 @@ def main(argv=None) -> int:
                   flush=True)
     del calls
     peaks = {}
+    K5 = mine["composite_bwd"][0]
+    o5 = other["composite_bwd"][0]
     for who in ("other", "this", "this", "other"):
         swap = (mock.patch.object(K5, "composite_bwd", o5.composite_bwd)
                 if who == "other" else contextlib.nullcontext())
@@ -185,6 +317,9 @@ def main(argv=None) -> int:
                                          other=peaks["other"])
     print(f"[compare] fused fwd+bwd step, peak device memory (MiB): this "
           f"{peaks['this']}, other K5 {peaks['other']} | {card}", flush=True)
+    del step
+    with torch.no_grad():
+        result.update(renderer_phases(CS, dev, card))
     print(json.dumps(dict(card=card, **result)))
     return 0
 

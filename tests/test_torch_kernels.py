@@ -22,6 +22,7 @@ from tbraymarcherplugin_tpu_torch.ops import composite as PC
 from tbraymarcherplugin_tpu_torch.ops import fused_march as PK9
 from tbraymarcherplugin_tpu_torch.ops import light_scan as PK4
 from tbraymarcherplugin_tpu_torch.ops import lighting as PL
+from tbraymarcherplugin_tpu_torch.ops import octree as PO
 from tbraymarcherplugin_tpu_torch.ops import rays as PR
 from tbraymarcherplugin_tpu_torch.ops import shearwarp as PSW
 from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad as PK5
@@ -282,6 +283,75 @@ def test_march_kernel_matches_plain(cuda, gen, compat, half_res_light, pos):
     # up to ~170 composited samples
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("mip", [1, 3])
+@pytest.mark.parametrize("pos", [(0.1, -0.3, 0.05), (0.1, -2.3, 0.4)])
+def test_march_kernel_skipping_empty_space_keeps_the_bits(cuda, gen, mip,
+                                                          pos):
+    """K9 with the renderer's occupancy grid (margin for the lerps'
+    rounding) against itself without the grid (the same bits), against its
+    plain version with the grid, and two launches against each other."""
+    dims = (64, 64, 64)
+    cam = PS.Camera.look_at(pos, (0.0, 0.0, 0.0), fov_degrees=60.0)
+    rays = PR.setup_rays(cam, PS.VolumeTransform.create(), 320, 180,
+                         device=cuda)
+    vol = torch.from_numpy(synthetic.ct_like_phantom(dims)).to(cuda)
+    tf = T.tf_ct_bone(device=cuda)
+    win = torch.tensor([0.5, 0.8, 1.0, 1.0], device=cuda)
+    occ = PO.occupancy_grid(PO.build_octree(vol), win, tf, mip=mip)
+    clip = PS.ClipPlane(*CLIP)
+    args = (vol, tf,
+            torch.from_numpy(gen.random(dims, dtype=np.float32)).to(cuda),
+            rays, win, clip.center, clip.direction)
+    kw = dict(jitter=PR.jitter_values(320, 180, 1, device=cuda),
+              step_count=120)
+    got = PK9.march_lit_fused(*args, **kw, occupancy=occ)
+    again = PK9.march_lit_fused(*args, **kw, occupancy=occ)
+    bare = PK9.march_lit_fused(*args, **kw)
+    stats = {}
+    want = PK9.march_lit_fused_plain(*args, **kw, occupancy=occ, stats=stats)
+    torch.cuda.synchronize()
+    assert float(want[..., 3].max()) > 0.5 and stats["empty"] > 0
+    assert torch.equal(got, again) and torch.equal(got, bare)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,off", [
+    ((8, 128, 128), (0.37, -1.6)),   # a half-resolution face
+    ((6, 96, 200), (-10.4, 3.3)),    # rows shift past many bands
+    ((6, 96, 200), (12.6, -7.2)),
+    ((4, 256, 256), (-0.33, 3.17)),  # the bench face's offsets
+    ((3, 17, 13), (2.5, -1.25)),
+    ((5, 9, 300), (-1.7, 14.2)),     # fewer rows than SMs
+    ((1, 40, 40), (0.5, 0.5)),
+    ((3, 512, 512), (5.3, -2.7)),    # 2 pixels a thread
+    ((2, 1024, 1024), (-3.2, 8.9)),  # 8 pixels a thread
+])
+def test_scan_bwd_kernel_one_launch_per_face(cuda, gen, shape, off):
+    """K7 against its plain version, exactly, and against itself, on faces
+    of other sizes and offsets of both signs."""
+    op = torch.from_numpy(gen.random(shape, dtype=np.float32) * 0.4).to(cuda)
+    g = torch.from_numpy(gen.standard_normal(shape).astype(
+        np.float32)).to(cuda)
+    alpha = torch.tensor(0.7, device=cuda)
+    y = PK4.propagate_face_scan(op, off[0], off[1], alpha)
+    before = PK4.propagate_face_scan_bwd.launches
+    got = PK4.propagate_face_scan_bwd(g, op, y, off[0], off[1], alpha)
+    again = PK4.propagate_face_scan_bwd(g, op, y, off[0], off[1], alpha)
+    assert PK4.propagate_face_scan_bwd.launches == before + 2
+    want = PK4.propagate_face_scan_bwd_plain(g, op, y, off[0], off[1], alpha)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    for a, b in zip(got, want):  # the same operations in the same order
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_scan_bwd_kernel_raises_on_a_face_too_large(cuda):
+    op = torch.zeros((1, 2048, 2048), device=cuda)
+    with pytest.raises(ValueError, match="K7"):
+        PK4.propagate_face_scan_bwd(op, op, op, 0.5, 0.5, 1.0)
 
 
 ALL_PLAIN = (

@@ -11,6 +11,7 @@ import torch
 from tbraymarcherplugin_tpu.ops import lighting as JL
 from tbraymarcherplugin_tpu.ops import transfer as JT
 from tbraymarcherplugin_tpu.ops.pallas_lighting import (
+    _scan_bwd_pallas,
     propagate_face_scan_pallas,
 )
 from tbraymarcherplugin_tpu.ops.pallas_tf import windowed_tf_alpha as jalpha
@@ -62,6 +63,33 @@ def test_scan_plain_matches_jax(rng, shape, off):
     got = PK4.propagate_face_scan(torch.from_numpy(op), off[0], off[1],
                                   0.83).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "shape,off",
+    [
+        ((6, 16, 16), (0.37, -1.6)),
+        ((7, 20, 12), (-10.4, 0.6)),  # the row shift spans many bands
+        ((5, 12, 30), (11.3, -6.8)),
+        ((1, 8, 8), (0.5, 0.5)),
+    ],
+)
+def test_scan_bwd_plain_matches_jax(rng, shape, off):
+    """K7's plain version against the JAX package's reverse-scan kernel
+    (interpret mode): every d opacity, sum m and m_0, on non-square faces
+    with row shifts of both signs up to 11 px."""
+    op = rng.random(shape, dtype=np.float32) * 0.6
+    g = rng.standard_normal(shape).astype(np.float32)
+    y = np.array(propagate_face_scan_pallas(
+        jnp.asarray(op), off[0], off[1], 0.83, interpret=True))
+    want = _scan_bwd_pallas(jnp.asarray(g), jnp.asarray(op), jnp.asarray(y),
+                            off[0], off[1], 0.83, True)
+    got = PK4.propagate_face_scan_bwd(
+        torch.from_numpy(g), torch.from_numpy(op), torch.from_numpy(y),
+        off[0], off[1], 0.83)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("face", range(6))
