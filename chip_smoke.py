@@ -18,7 +18,9 @@ Phases, one line each:
      move; every forward kernel's launch counter must rise; frames are
      checked for finiteness, coverage and distinct checksums, against the
      port's all-plain path on the card, and, on a small scene, against the
-     CPU;
+     CPU; K4 (one cooperative launch per face) as one device operation per
+     call and exactly its plain version on the rebuild's faces, on
+     K7_FACES and on a 2048^2 face (K4_LARGE);
   5. fwd+bwd: the differentiable frame of the same scene (bf16 planes, no
      jitter) through `models.pipeline.render_lit_scene`: three
      `loss.backward()` steps of the L2 loss against the frame at window
@@ -27,7 +29,9 @@ Phases, one line each:
      step and all eight kernels' counters must rise, with the third step's
      peak device memory; then each backward
      kernel K5-K8 against its plain version on the inputs the path gave it
-     (and against itself: two launches must give the same bits), how K5's
+     (and against itself: two launches must give the same bits), K6's
+     yardstick `grid_sampler_2d_backward` (the input gradient of K2's
+     `grid_sample` call) at both warp passes, how K5's
      histogram adds cluster there (the plain version's `stats=`: hit
      share, add rounds per warp of 32 pixels and plane, runs of equal
      texels), K7 as one device kernel per face and exactly its plain version
@@ -120,6 +124,13 @@ LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
 # which moves a tap by up to ~1e-4 texel at N ~ 1900 (2.3e-5 on the bench
 # frame's rows, NVIDIA H100 80GB HBM3, 700 W); K2 reads idx as it is.
 LIBRARY_LERP_LIMIT = 1e-4
+# `grid_sampler_2d_backward` as K6's yardstick against K6's plain version,
+# as the largest error over the largest plain value: the same tap moves
+# move each weight by up to 1e-4 (1.9e-4 and 1.4e-4 of the largest value
+# at the two passes, NVIDIA H100 80GB HBM3, 700 W); on indices its float32
+# mapping keeps exact, the two agree within 1e-5
+# (tests/test_torch_warp.py).
+LIBRARY_LERP_BWD_LIMIT = 1e-3
 # Backward kernels against their plain versions on the same inputs, as the
 # largest error over the largest plain value of each output (K5: dW, dL, dTF,
 # d window; K6: d rows; K7: d opacity, sum m, m_0; K8: d values, dTF,
@@ -156,6 +167,9 @@ K7_FACES = (((64, 128, 128), (0.37, -1.6)),
             ((32, 512, 512), (3.4, -9.6)),
             ((8, 1024, 1024), (-2.2, 1.7)))
 K7_TOO_LARGE = (1, 2048, 2048)
+# Phase 4: K4 on a face of 2048^2 (16 rows a block on 132 SMs, its band and
+# halo staged in 221 KB of shared memory), rows shifting up by 10.4 px.
+K4_LARGE = ((3, 2048, 2048), (-10.4, 3.3))
 # Phase 6: the fly-through camera, inside the 256^3 volume's dominant slab
 # (no shear-warp plan), looking at the center through the phantom's bone
 # shell; every ray of its frame hits bone (alpha coverage 1.0 on the CPU at
@@ -659,6 +673,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
             replay(torch, name, getattr(mod, fn),
                        getattr(mod, fn + "_plain"), used, card, results)
             results[name]["launches"] = launches[name]
+        row_lerp_bwd_library(torch, calls["row_lerp_bwd"], card, results)
         # how K5's histogram adds cluster on these inputs
         args, kw = calls["composite_bwd"][0]
         sums = {}
@@ -710,6 +725,75 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
           and float(diff.max()) < SMALL_MAX_LIMIT, "card != CPU on 24^3")
     check(max(errs.values()) <= GRAD_VS_PLAIN_LIMIT,
           "card gradients != CPU gradients on 24^3")
+
+
+def light_scan_faces(torch, path_calls, card):
+    """K4 as one device operation per call and exactly its plain version on
+    the rebuild's faces (``path_calls``), on K7_FACES and on K4_LARGE;
+    returns the device operations per call on the rebuild's faces."""
+    from tbraymarcherplugin_tpu_torch.ops import light_scan as K4
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    alpha = torch.tensor(0.7, device="cuda")
+    faces = [(args, kw, "the rebuild's") for args, kw in path_calls]
+    for shape, off in K7_FACES + (K4_LARGE,):
+        op = torch.rand(shape, generator=gen, device="cuda") * 0.4
+        faces.append(((op, *off, alpha), {}, "a"))
+    path_ops = []
+    for args, kw, whose in faces:
+        got = K4.propagate_face_scan(*args, **kw)
+        want = K4.propagate_face_scan_plain(*args, **kw)
+        ms, n_ops = device_ms(
+            torch, lambda: K4.propagate_face_scan(*args, **kw), 3)
+        op = args[0]
+        plan = K4.scan_plan(*op.shape, args[1], *K4.device_limits(op.device))
+        print(f"[kernel] light_scan on {whose} {tuple(op.shape)} face, "
+              f"offsets ({float(args[1]):.4f}, {float(args[2]):.4f}): exact "
+              f"{torch.equal(got, want)} (limit 0) | {n_ops} device "
+              f"operation per call, {ms:.4f} ms on the device | T "
+              f"{plan.slices}, {plan.rows} rows a block, staged "
+              f"{plan.staged}, {plan.threads} threads | {card}", flush=True)
+        check(torch.equal(got, want),
+              f"K4 != its plain version on a {tuple(op.shape)} face")
+        check(n_ops == 1, f"K4 took {n_ops} device operations for one face")
+        if whose != "a":
+            path_ops.append(n_ops)
+    return path_ops
+
+
+def row_lerp_bwd_library(torch, used, card, results):
+    """K6's yardstick `library_ms`: `grid_sampler_2d_backward`, the input
+    gradient of K2's `grid_sample` call (`row_lerp_library_args`), on the
+    warp passes' cotangents ``used``, against K6's plain version, timed."""
+    from tbraymarcherplugin_tpu_torch.ops import warp
+
+    fns, err = [], 0.0
+    for args, kw in used:
+        g, idx, n, groups = (*args, *kw.values())
+        g = g.contiguous()
+        rq, q = idx.shape
+        inp, grid = row_lerp_library_args(
+            torch, torch.empty((groups * rq, n), device=g.device), idx,
+            groups)
+
+        def lib(go=g.view(groups, 1, rq, q), inp=inp, grid=grid):
+            return torch.ops.aten.grid_sampler_2d_backward(
+                go, inp, grid, 0, 1, True, [True, False])[0]
+
+        want = warp.row_lerp_bwd_plain(g, idx, n, groups)
+        d = float((lib().reshape(want.shape) - want).abs().max())
+        err = max(err, d / float(want.abs().max()))
+        fns.append(lib)
+    ms = sum(cuda_ms(torch, f, 5) for f in fns)
+    dev = sum(device_ms(torch, f, 5)[0] for f in fns)
+    results["row_lerp_bwd"].update(library_ms=ms, library_device_ms=dev)
+    print(f"[kernel] row_lerp_bwd as grid_sampler_2d_backward (the input "
+          f"gradient of K2's grid_sample): error against the plain version "
+          f"over its largest value {err:.3e} (limit "
+          f"{LIBRARY_LERP_BWD_LIMIT:.0e}) | {ms:.4f} ms back to back, "
+          f"{dev:.4f} ms on the device, both passes | {card}", flush=True)
+    check(err <= LIBRARY_LERP_BWD_LIMIT,
+          "grid_sampler_2d_backward != the row lerp's adjoint")
 
 
 def light_scan_bwd_faces(torch, path_call, card):
@@ -1559,6 +1643,13 @@ def main() -> int:
     for n in names:
         check(launches[n] > 0, f"kernel {n} was not launched by the main path")
         results[n]["launches"] = launches[n]
+    calls = {}
+    with capture_calls(calls, ["light_scan"]), torch.no_grad():
+        make_renderer().ensure_lighting()
+    with torch.no_grad():
+        n_ops = light_scan_faces(torch, calls["light_scan"], card)
+    results["light_scan"]["device_ops_per_call"] = max(n_ops)
+    del calls
 
     sums = []
     for f in frames:

@@ -30,7 +30,8 @@
 //   them two slices ahead into registers, right after it publishes, so
 //   their latency is off the chain; the d o stores come after the publish;
 // - the publish is a block barrier and one release store (no separate
-//   fence); the wait, acquire loads and a block barrier;
+//   fence); the wait, acquire loads and a block barrier (scan_sync.cuh,
+//   shared with K4, whose counters are the same pool);
 // - sum_k m_k stays in registers and is written once at the end, m_0 at
 //   slice 0.
 // A thread takes 1 to 8 pixels of its band (a template parameter); a face
@@ -41,49 +42,15 @@
 // operations in its order, so K7 agrees with
 // ops/light_scan.py::propagate_face_scan_bwd_plain bit for bit.
 
-#include <stdint.h>
-
 #include "common.cuh"
+#include "scan_sync.cuh"
 
 namespace {
 
 constexpr int MAX_UNITS = 8;                 // pixels a thread
-constexpr long long WAIT_LIMIT_NS = 2000000000LL;
 
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the counters of blocks [lo, hi] reach `target`.
-__device__ __forceinline__ void wait_for(const unsigned long long* flags,
-                                         int lo, int hi,
-                                         unsigned long long target) {
-  for (int c = lo + (int)threadIdx.x; c <= hi; c += (int)blockDim.x) {
-    const long long t0 = global_ns();
-    while ((long long)(load_acquire(flags + c) - target) < 0) {
-      if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
-    }
-  }
-  __syncthreads();
-}
+using tbr_scan::publish;
+using tbr_scan::wait_for;
 
 // One pixel's place: its offset in a plane, and for each shift (m's by
 // -off, y's by +off) the offset of its first tap with the validity of the
@@ -211,9 +178,7 @@ __global__ void __launch_bounds__(THREADS, 1) light_scan_bwd_kernel(
           __stcg(m_out + px[q].plane, mv[q]);
         }
       }
-      __syncthreads();  // the block's rows of m_k are written
-      // the barrier orders every thread's stores before thread 0's release
-      if (threadIdx.x == 0) store_release(flags + b, base + s + 1);
+      publish(flags, b, base + s + 1);  // the block's rows of m_k
     }
     float* dk = d_op + k * hw;
 #pragma unroll

@@ -49,7 +49,9 @@ SIGNATURES = {
     "tbr_row_lerp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbr_tf_alpha": [_P, _P, _P, _P, ctypes.c_longlong, _F, _P],
     "tbr_tf_alpha_bwd": [_P] * 6 + [ctypes.c_longlong, _F, _I, _P],
-    "tbr_light_scan": [_P, _P] + [_I] * 4 + [_F, _I, _F, _P, _P],
+    "tbr_light_scan": [_P, _P, _P, ctypes.c_ulonglong] + [_I] * 14
+    + [_F, _I, _F, _P, _F, _P],
+    "tbr_device_attribute": [_I],
     "tbr_light_scan_bwd": [_P] * 8 + [ctypes.c_ulonglong] + [_I] * 4
     + [_F, _I, _F, _I, _F, _I, _F] + [_P, _P],
     "tbr_light_scan_bwd_blocks": [_I, _I],

@@ -24,7 +24,9 @@ from . import _kernels
 from .shearwarp import ShearWarpPlan, screen_fields, warp_rows
 
 _MAX_GRID_Y = 65535
-_MAX_BWD_SMEM = 227 * 1024  # K6 keeps 4 rows of accumulators per block
+# K6 takes rows of N texels whose 4 N floats fit a block's shared memory
+# (a warp keeps one row's accumulators, a block 1 to 8 warps)
+_MAX_BWD_SMEM = 227 * 1024
 
 
 def _taps(idx: torch.Tensor, n: int):

@@ -1,5 +1,5 @@
-"""Hold the kernels K1, K5, K7 and K9 of this checkout against another
-checkout's build of them, on the main path's own inputs.
+"""Hold the kernels K1, K4, K5, K6, K7 and K9 of this checkout against
+another checkout's build of them, on the main path's own inputs.
 
     python -m tbraymarcherplugin_tpu_torch.tools.compare_kernels OTHER
 
@@ -8,24 +8,31 @@ the kernel table and the timers from ``chip_smoke.py``. ``OTHER`` is the
 root of another checkout (an earlier commit, unpacked with ``git
 archive``); its ``tbraymarcherplugin_tpu_torch`` is imported under another
 name and builds its kernels into its own ``_build/``. The inputs are those
-of ``chip_smoke.py``'s phases 4 (lit K1 with jitter), 5 (K5 and the first
+of ``chip_smoke.py``'s phases 4 (lit K1 with jitter; K4 on the rebuild's
+primary and secondary face), 5 (K5, both warp passes' K6 and the first
 face's K7 of the fused fwd+bwd step), 6 (K9 at the fly-through camera and
 at the bench camera forced to march; this checkout's call keeps the
 occupancy grid the path gave it, the other's goes without where its
 wrapper takes none) and 10 (K1's intensity, unlit and λ-ceiling
 variants). For each kernel it prints whether both builds give the same
-bits (K1's and K9's output; K7's d opacity, sum m and m_0; K5's dW and dL,
-and the largest difference of d TF and d window over their largest value,
-which sum in another order), and the device time of each
-(``chip_smoke.device_ms``), taken in turns: other, this, this, other.
-Then the peak device memory of one fused fwd+bwd step through each K5.
-Then the renderer at the fly-through camera: a window drag, each frame
-after a new window center (which rebuilds the illumination and, with
-empty-space skipping, the occupancy grid), through the other checkout's
-renderer, this one's and this one's without skipping, in turns; and this
-one's "blocked" march with the grid at mip 1 and at mip 3, in turns, with
-each grid's build. The last line is one JSON object of it all. Needs a
-CUDA device.
+bits (K1's, K4's and K9's output; K7's d opacity, sum m and m_0; K5's dW
+and dL, and the largest difference of d TF and d window over their
+largest value, which sum in another order; K6's d rows, the largest
+difference over the largest value where the bits differ), and the device
+time of each (``chip_smoke.device_ms``), taken in turns: other, this,
+this, other; for K4 also the time of back-to-back calls
+(``chip_smoke.cuda_ms``, which holds the host where the host is slower).
+Then the peak device memory of one fused fwd+bwd step through each K5;
+the fused step's host ms and device ms through each checkout's K4 and K6;
+the illumination rebuild (one light, two faces) and a light move (four
+faces), host ms and device ms, through each checkout's `Renderer`, in
+turns. Then the renderer at the fly-through camera: a window drag, each
+frame after a new window center (which rebuilds the illumination and,
+with empty-space skipping, the occupancy grid), through the other
+checkout's renderer, this one's and this one's without skipping, in turns;
+and this one's "blocked" march with the grid at mip 1 and at mip 3, in
+turns, with each grid's build. The last line is one JSON object of it all.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,7 +68,9 @@ def load_other(root) -> dict:
 
 # kernel name -> the module under ``ops`` and the wrapper that launches it
 WRAPPERS = (("composite", "composite", "composite"),
+            ("light_scan", "light_scan", "propagate_face_scan"),
             ("composite_bwd", "shearwarp_grad", "composite_bwd"),
+            ("row_lerp_bwd", "warp", "row_lerp_bwd"),
             ("light_scan_bwd", "light_scan", "propagate_face_scan_bwd"),
             ("march", "fused_march", "march_lit_fused"))
 
@@ -151,9 +160,92 @@ def renderer_phases(CS, dev, card) -> dict:
                 blocked_march={str(m): t for m, t in blocked.items()})
 
 
+def fused_step_turns(CS, step, mine, other, card) -> dict:
+    """Host ms and device ms of the fused fwd+bwd step through this
+    checkout's K4 and K6 and through the other's, in turns."""
+    out = {"this": {"host_ms": [], "device_ms": []},
+           "other": {"host_ms": [], "device_ms": []}}
+    for who in ("other", "this", "this", "other"):
+        with contextlib.ExitStack() as stack:
+            if who == "other":
+                for name in ("light_scan", "row_lerp_bwd"):
+                    (mod, fn), (omod, ofn) = mine[name], other[name]
+                    stack.enter_context(
+                        mock.patch.object(mod, fn, getattr(omod, ofn)))
+            step(CS.FWD_BWD_CENTERS[1])
+            host = [CS.host_ms(torch, lambda c=c: step(c))[1]
+                    for c in CS.FWD_BWD_CENTERS]
+            out[who]["host_ms"].append(sum(host) / len(host))
+            out[who]["device_ms"].append(CS.device_ms(
+                torch, lambda: step(CS.FWD_BWD_CENTERS[2]), 2)[0])
+    for who, t in out.items():
+        print(f"[compare] fused fwd+bwd step through {who} K4 and K6: host "
+              f"ms {', '.join(f'{x:.2f}' for x in t['host_ms'])}, device "
+              f"ms {', '.join(f'{x:.3f}' for x in t['device_ms'])} | {card}",
+              flush=True)
+    return out
+
+
+MOVED_LIGHT = (0.1, 0.4, -0.9)
+
+
+def lighting_turns(CS, dev, card) -> dict:
+    """Host ms and device ms of the illumination rebuild (one light, after
+    a new window center) and of a light move (the light swapped between
+    two directions: four faces) through the other checkout's `Renderer`
+    and this one's, in turns."""
+    from ..ops import synthetic
+
+    volume = torch.from_numpy(synthetic.ct_like_phantom(CS.DIMS, seed=0)).to(
+        dev)
+    here = __package__.rsplit(".", 1)[0]
+
+    def make(pkg):
+        S = importlib.import_module(pkg + ".scene")
+        Rm = importlib.import_module(pkg + ".renderer")
+        T = importlib.import_module(pkg + ".ops.transfer")
+        V = importlib.import_module(pkg + ".utils.volume_info")
+        r = Rm.Renderer(volume, tf_table=T.tf_ct_bone(device=dev),
+                        windowing=V.WindowingParameters(*CS.WINDOW),
+                        transform=S.VolumeTransform.create(),
+                        config=Rm.RendererConfig(step_count=CS.STEPS,
+                                                 jitter=True),
+                        device=dev)
+        r.add_light("sun", S.DirLight.create(CS.LIGHT_DIR, 1.0))
+        r.ensure_lighting()
+        n_rebuild, n_move = itertools.count(), itertools.count()
+
+        def rebuild():
+            r.set_window_center(DRAG_CENTERS[next(n_rebuild) % 2])
+            r.ensure_lighting()
+
+        def move():  # starts from CS.LIGHT_DIR: every call moves it
+            d = (MOVED_LIGHT, CS.LIGHT_DIR)[next(n_move) % 2]
+            r.update_light("sun", S.DirLight.create(d, 1.0))
+            r.ensure_lighting()
+        return {"rebuild": rebuild, "light move": move}
+
+    out = {}
+    for who in ("other", "this", "this", "other"):
+        fns = make("other_port" if who == "other" else here)
+        for what, fn in fns.items():
+            host = [CS.host_ms(torch, fn)[1] for _ in range(4)]
+            t = out.setdefault(what, {}).setdefault(
+                who, {"host_ms": [], "device_ms": []})
+            t["host_ms"].append(sum(host) / len(host))
+            t["device_ms"].append(CS.device_ms(torch, fn, 4)[0])
+    for what, per in out.items():
+        for who, t in per.items():
+            print(f"[compare] {what} through {who} renderer: host ms "
+                  f"{', '.join(f'{x:.2f}' for x in t['host_ms'])}, device "
+                  f"ms {', '.join(f'{x:.3f}' for x in t['device_ms'])} | "
+                  f"{card}", flush=True)
+    return {"lighting": out}
+
+
 def path_inputs(CS, dev) -> dict:
-    """name -> (args, kwargs) of the K1, K5, K7 and K9 calls of chip_smoke's
-    phases 4, 5, 6 and 10 at the bench scene."""
+    """name -> (args, kwargs) of the K1, K4, K5, K6, K7 and K9 calls of
+    chip_smoke's phases 4, 5, 6 and 10 at the bench scene."""
     from ..ops import composite as K1
     from ..ops import lighting as Lt
     from ..ops import shearwarp as SW
@@ -188,16 +280,32 @@ def path_inputs(CS, dev) -> dict:
         volume, tf, light_volume, plan, win, clip.center, clip.direction,
         jitter=jit))
 
-    # phase 5: K5 and the first face's K7 of a fused fwd+bwd step
+    # phase 4: K4 on the rebuild's primary and secondary face
+    r = Renderer(volume, tf_table=tf, windowing=windowing,
+                 transform=transform,
+                 config=RendererConfig(step_count=CS.STEPS, jitter=True),
+                 device=dev)
+    r.add_light("sun", light)
+    got = {}
+    with CS.capture_calls(got, ["light_scan"]):
+        r.ensure_lighting()
+    calls["light_scan"], calls["light_scan_secondary"] = got["light_scan"]
+
+    # phase 5: K5, both passes' K6 and the first face's K7 of a fused
+    # fwd+bwd step
     step = CS.make_fwd_bwd_step(
         torch, volume, cam, transform, clip, CS.WIDTH, CS.HEIGHT,
         dict(march_impl="shearwarp", shearwarp_tf_unit="fused",
              shearwarp_dtype=None), max_planes=CS.STEPS)
     got = {}
-    with CS.capture_calls(got, ["composite_bwd", "light_scan_bwd"]):
+    with CS.capture_calls(got, ["composite_bwd", "light_scan_bwd",
+                                "row_lerp_bwd"]):
         step(CS.FWD_BWD_CENTERS[0])
     calls["composite_bwd"] = got["composite_bwd"][0]
     calls["light_scan_bwd"] = got["light_scan_bwd"][0]
+    # the backward takes the screen pass first
+    calls["row_lerp_bwd_pass2"], calls["row_lerp_bwd_pass1"] = (
+        got["row_lerp_bwd"])
 
     # phase 6: K9 at the fly-through camera and at the bench camera forced
     # to march
@@ -264,8 +372,8 @@ def main(argv=None) -> int:
     result = {}
     with torch.no_grad():
         for name, (args, kw) in calls.items():
-            kernel = name if name in mine else (
-                "march" if name.startswith("march") else "composite")
+            kernel = max((k for k in mine
+                          if name == k or name.startswith(k + "_")), key=len)
             (mod, fn), (omod, ofn) = mine[kernel], other[kernel]
             this_fn, other_fn = getattr(mod, fn), getattr(omod, ofn)
             okw = dict(kw)
@@ -280,23 +388,38 @@ def main(argv=None) -> int:
             elif kernel == "light_scan_bwd":
                 same = all(torch.equal(x, y) for x, y in zip(a, b))
                 rel = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            elif kernel == "row_lerp_bwd":
+                same = torch.equal(a, b)
+                rel = float((a - b).abs().max() / b.abs().max())
             else:
                 same, rel = torch.equal(a, b), float((a - b).abs().max())
             del a, b
             times = {"other": [], "this": []}
+            kernel_ms = {"other": [], "this": []}
             for who in ("other", "this", "this", "other"):
                 f, k = (this_fn, kw) if who == "this" else (other_fn, okw)
                 times[who].append(CS.device_ms(
                     torch, lambda f=f, k=k: f(*args, **k), 5)[0])
+                if kernel == "light_scan":
+                    kernel_ms[who].append(CS.cuda_ms(
+                        torch, lambda f=f, k=k: f(*args, **k), 10))
             result[name] = dict(same_bits=same, other_diff=rel,
                                 device_ms=times["this"],
                                 other_device_ms=times["other"])
-            what = ("d TF, d window relative" if kernel == "composite_bwd"
-                    else "max abs")
+            what = {"composite_bwd": "d TF, d window relative",
+                    "row_lerp_bwd": "relative"}.get(kernel, "max abs")
+            line = (f"device ms this "
+                    f"{', '.join(f'{t:.4f}' for t in times['this'])}, other "
+                    f"{', '.join(f'{t:.4f}' for t in times['other'])}")
+            if kernel_ms["this"]:
+                result[name].update(kernel_ms=kernel_ms["this"],
+                                    other_kernel_ms=kernel_ms["other"])
+                line += (f"; kernel ms this "
+                         f"{', '.join(f'{t:.4f}' for t in kernel_ms['this'])}"
+                         f", other "
+                         f"{', '.join(f'{t:.4f}' for t in kernel_ms['other'])}")
             print(f"[compare] {name}: same bits as the other build {same} "
-                  f"({what} difference {rel:.3e}) | device ms this "
-                  f"{', '.join(f'{t:.4f}' for t in times['this'])}, other "
-                  f"{', '.join(f'{t:.4f}' for t in times['other'])} | {card}",
+                  f"({what} difference {rel:.3e}) | {line} | {card}",
                   flush=True)
     del calls
     peaks = {}
@@ -317,7 +440,10 @@ def main(argv=None) -> int:
                                          other=peaks["other"])
     print(f"[compare] fused fwd+bwd step, peak device memory (MiB): this "
           f"{peaks['this']}, other K5 {peaks['other']} | {card}", flush=True)
+    result["fused_step_k4_k6"] = fused_step_turns(CS, step, mine, other, card)
     del step
+    with torch.no_grad():
+        result.update(lighting_turns(CS, dev, card))
     with torch.no_grad():
         result.update(renderer_phases(CS, dev, card))
     print(json.dumps(dict(card=card, **result)))

@@ -235,6 +235,60 @@ def test_scan_kernel_matches_plain(cuda, gen, off):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+def _device_ops(fn):
+    """Device operations of one ``fn()`` call in torch.profiler's trace."""
+    import chip_smoke
+
+    return chip_smoke.device_ms(torch, fn, 3)[1]
+
+
+@pytest.mark.parametrize("shape,off", [
+    ((12, 256, 256), (-0.33, 3.17)),  # the bench faces, cut to depth: T = 8
+    ((12, 256, 256), (0.37, -1.6)),
+    ((20, 96, 72), (-10.4, 3.3)),     # rows shift past many bands
+    ((20, 96, 72), (10.4, -3.3)),
+    ((1, 40, 40), (0.5, 0.5)),        # K = 1
+    ((3, 17, 13), (2.5, -1.25)),
+    ((5, 9, 300), (-1.7, 14.2)),      # fewer rows than SMs
+    ((6, 512, 512), (3.4, -9.6)),     # 2-4 pixels a thread
+    ((4, 1024, 1024), (-2.2, 1.7)),   # 4 pixels a thread, and chunks beyond
+    ((2, 2048, 2048), (-10.4, 3.3)),  # 16 rows a block, 8 chunks
+    ((2, 2048, 2048), (10.4, -3.3)),
+])
+def test_scan_kernel_one_launch_per_face(cuda, gen, shape, off):
+    """K4 against its plain version, exactly, with alpha as a tensor and
+    by value, and as one device operation per call."""
+    op = torch.from_numpy(gen.random(shape, dtype=np.float32) * 0.4).to(cuda)
+    alpha = torch.tensor(0.8, device=cuda)
+    before = PK4.propagate_face_scan.launches
+    got = PK4.propagate_face_scan(op, off[0], off[1], alpha)
+    by_value = PK4.propagate_face_scan(op, off[0], off[1], 0.8)
+    assert PK4.propagate_face_scan.launches == before + 2
+    want = PK4.propagate_face_scan_plain(op, off[0], off[1], alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(by_value, want)
+    assert _device_ops(
+        lambda: PK4.propagate_face_scan(op, off[0], off[1], alpha)) == 1
+
+
+@pytest.mark.parametrize("slices,staged", [(1, False), (1, True), (2, True),
+                                           (4, True), (8, True), (16, True)])
+@pytest.mark.parametrize("off", [(-0.33, 3.17), (2.7, -0.4)])
+def test_scan_kernel_every_group_size(cuda, gen, off, slices, staged):
+    """K4 with T forced, staged or not, gives the plain version's bits and
+    the same bits on every launch (a race shows as one launch of several
+    with other bits)."""
+    op = torch.from_numpy(gen.random((37, 256, 256), dtype=np.float32)
+                          * 0.4).to(cuda)
+    want = PK4.propagate_face_scan_plain(op, off[0], off[1], 0.9)
+    plan = PK4.scan_plan(*op.shape, off[0], *PK4.device_limits(op.device),
+                         slices=slices, staged=staged)
+    for _ in range(3):
+        got = PK4._launch_scan(op, plan, off[0], off[1], 0.9)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("light_dims", [(48, 48, 48), (24, 24, 24)])
 def test_add_dir_light_kernels_match_plain(cuda, light_dims):
     vol = torch.from_numpy(synthetic.ct_like_phantom((48, 48, 48))).to(cuda)
@@ -430,6 +484,84 @@ def test_row_lerp_bwd_kernel_matches_plain(cuda, gen):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, want, 1e-5, 1e-6, "d rows")
+
+
+def _index_rows(gen, case, rq, q, n):
+    """(rq, q) index rows of one kind: a monotone magnifying row (1.5 q a
+    texel, ends clamped), the same reversed (a mirrored view), one
+    constant texel (32 lanes on one tap), random texels, and a row that
+    rises and falls within each chunk of 32 q."""
+    if case == "constant":
+        return np.full((rq, q), n * 0.41 + 0.3)
+    if case == "random":
+        return gen.random((rq, q)) * (n + 20.0) - 10.0
+    if case == "zigzag":
+        return (np.abs(np.arange(q) % 32 - 15.5)[None, :] * 3.0
+                + gen.random((rq, 1)) * (n - 60))
+    ramp = (np.linspace(-3.0, q / 1.5 - 3.0, q)[None, :]
+            + gen.random((rq, 1)) * (n - q / 1.5))
+    return ramp[:, ::-1] if case == "reversed" else ramp
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("case", ["magnify", "reversed", "constant",
+                                  "random", "zigzag"])
+def test_row_lerp_bwd_kernel_on_index_kinds(cuda, gen, case, groups):
+    """K6 on each kind of index row (its runs of equal taps by shuffles,
+    or its ordered rounds): the same bits on every launch, within 1e-5 of
+    the plain version's largest value."""
+    rq, q, n = 24, 1000, 1280
+    idx = torch.from_numpy(np.ascontiguousarray(
+        _index_rows(gen, case, rq, q, n), np.float32)).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((groups * rq, q)).astype(
+        np.float32)).to(cuda)
+    got = PW.row_lerp_bwd(g, idx, n, groups)
+    again = PW.row_lerp_bwd(g, idx, n, groups)
+    want = PW.row_lerp_bwd_plain(g, idx, n, groups)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # BWD_LIMITS["row_lerp_bwd"] of chip_smoke.py: the sums run in another
+    # order than scatter_add's
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("groups", [4, 2, 3])
+@pytest.mark.parametrize("case", ["magnify", "reversed", "zigzag"])
+def test_row_lerp_bwd_kernel_on_short_rows(cuda, gen, case, groups):
+    """Rows of 300 texels (8 warps a block) in 4, 2 and 3 channel groups:
+    the same bits on every launch, within 1e-5."""
+    rq, q, n = 40, 450, 300
+    idx = torch.from_numpy(np.ascontiguousarray(
+        _index_rows(gen, case, rq, q, n), np.float32)).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((groups * rq, q)).astype(
+        np.float32)).to(cuda)
+    got = PW.row_lerp_bwd(g, idx, n, groups)
+    again = PW.row_lerp_bwd(g, idx, n, groups)
+    want = PW.row_lerp_bwd_plain(g, idx, n, groups)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_row_lerp_bwd_kernel_at_the_largest_rows(cuda, gen):
+    """N at the wrapper's largest (4 rows of N floats fill a block's shared
+    memory; one warp a block), four channel groups, a magnifying row."""
+    n = PW._MAX_BWD_SMEM // 16
+    rq, q = 6, 9000
+    idx = torch.from_numpy(np.ascontiguousarray(
+        _index_rows(gen, "magnify", rq, q, n), np.float32)).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((4 * rq, q)).astype(
+        np.float32)).to(cuda)
+    got = PW.row_lerp_bwd(g, idx, n, 4)
+    again = PW.row_lerp_bwd(g, idx, n, 4)
+    want = PW.row_lerp_bwd_plain(g, idx, n, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # BWD_LIMITS["row_lerp_bwd"] of chip_smoke.py: the sums run in another
+    # order than scatter_add's
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError):
+        PW.row_lerp_bwd(g[:, :10], idx[:, :10], n + 1, 4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -82,3 +82,30 @@ def test_row_lerp_plain_matches_lerp_take_any_spread(rng):
     got = PW.row_lerp(torch.from_numpy(rows), torch.from_numpy(idx), 4)
     np.testing.assert_array_equal(got.numpy(), want)
 
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_grid_sampler_backward_is_the_row_lerp_adjoint(rng, groups):
+    """K6's yardstick in `chip_smoke.py`: `grid_sampler_2d_backward` (the
+    input gradient only) on `row_lerp_library_args`'s arguments computes
+    `row_lerp_bwd_plain`. grid_sample maps its coordinate back to texels in
+    float32; with N - 1 a power of two and indices on a 1/64-texel grid
+    (clamped ends included) that mapping is exact, so both take the same
+    taps and weights and differ only in the order of their sums: within
+    1e-5 of the largest value, the backward kernels' limit."""
+    import chip_smoke as CS
+
+    n, rq, q = 65, 9, 300
+    idx = torch.from_numpy((np.round(
+        (rng.random((rq, q)) * (n + 10.0) - 5.0) * 64.0) / 64.0).astype(
+            np.float32))
+    g = torch.from_numpy(rng.standard_normal((groups * rq, q)).astype(
+        np.float32))
+    rows = torch.zeros((groups * rq, n))
+    inp, grid = CS.row_lerp_library_args(torch, rows, idx, groups)
+    got = torch.ops.aten.grid_sampler_2d_backward(
+        g.view(groups, 1, rq, q), inp, grid, 0, 1, True, [True, False])[0]
+    want = PW.row_lerp_bwd_plain(g, idx, n, groups)
+    assert got.shape == (groups, 1, rq, n)
+    err = float((got.reshape(want.shape) - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
