@@ -9,7 +9,8 @@ Phases, one line each:
      (one nvcc per source, all at once);
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
      at the shapes of the main path (max abs error against a stated limit,
-     CUDA-event times of both), and K2's row lerp as one `grid_sample`
+     CUDA-event times of both; K2 exactly, on both warp passes of the
+     frame), and K2's row lerp as one `grid_sample`
      call, K2's yardstick (`library_ms`), checked against the plain version
      and timed the same ways;
   4. slice: the full lit frame (256^3 CT phantom, bone TF, window
@@ -29,7 +30,10 @@ Phases, one line each:
      step and all eight kernels' counters must rise, with the third step's
      peak device memory; then each backward
      kernel K5-K8 against its plain version on the inputs the path gave it
-     (and against itself: two launches must give the same bits), K6's
+     (and against itself: two launches must give the same bits), how K8's
+     histogram adds cluster on the first face (the plain version's
+     `stats=`: hit share, add rounds per warp of 32 elements, runs of
+     equal texels) and K8 as one device operation per call, K6's
      yardstick `grid_sampler_2d_backward` (the input gradient of K2's
      `grid_sample` call) at both warp passes, how K5's
      histogram adds cluster there (the plain version's `stats=`: hit
@@ -553,6 +557,7 @@ def replay(torch, name, real, plain, used, card, results):
     plain_ms = sum(cuda_ms(torch, lambda a=a, k=k: plain(*a, **k), 1)
                    for a, k in used)
     results[name] = dict(max_abs_err=abs_err, ms=ms, device_ms=dev[0],
+                         device_ops_per_call=dev[1] / len(used),
                          plain_ms=plain_ms, library_ms=None,
                          **bound(torch, name, outs))
     del outs
@@ -617,7 +622,8 @@ def make_fwd_bwd_step(torch, vol, cam, transform, clip, width, height,
 
 def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     """Phase 5 (see the module docstring); adds K5-K8 to ``results``."""
-    from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad, synthetic
+    from tbraymarcherplugin_tpu_torch.ops import (shearwarp_grad, synthetic,
+                                                  tf_alpha)
 
     def make_step(vol, width, height, dtype=None, **plan_kw):
         """An L2 fwd+bwd step of the lit frame of ``vol`` through the fused
@@ -673,6 +679,18 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
             replay(torch, name, getattr(mod, fn),
                        getattr(mod, fn + "_plain"), used, card, results)
             results[name]["launches"] = launches[name]
+        # how K8's histogram adds cluster on the first face
+        args, kw = calls["tf_alpha_bwd"][0]
+        sums = {}
+        tf_alpha.windowed_tf_alpha_bwd_plain(*args, **kw, stats=sums)
+        results["tf_alpha_bwd"].update(histogram=sums)
+        print(f"[kernel] tf_alpha_bwd adds on the first face: hit share "
+              f"{sums['hit']:.4f} of {args[0].numel()} elements, rounds per "
+              f"warp of 32 elements mean {sums['rounds_mean']:.2f}, max "
+              f"{sums['rounds_max']}, mean run of equal texels along the "
+              f"elements {sums['run_mean']:.2f}", flush=True)
+        ops = results["tf_alpha_bwd"]["device_ops_per_call"]
+        check(ops == 1, f"K8 took {ops:g} device operations for one call")
         row_lerp_bwd_library(torch, calls["row_lerp_bwd"], card, results)
         # how K5's histogram adds cluster on these inputs
         args, kw = calls["composite_bwd"][0]
@@ -1602,6 +1620,8 @@ def main() -> int:
           f"{LIBRARY_LERP_LIMIT:.0e}) | {lib_ms:.4f} ms back to back, "
           f"{lib_dev:.4f} ms on the device, both passes | {card}", flush=True)
     check(lib_err <= LIBRARY_LERP_LIMIT, "grid_sample != the row lerp")
+    check(results["row_lerp"]["max_abs_err"] == 0.0,
+          "K2 is not exactly its plain version on the warp passes")
     del lib
     spread = float((idx1.amax(1) - idx1.amin(1)).max())
     print(f"[kernel] row_lerp pass-1 index spread per row: {spread:.1f} "

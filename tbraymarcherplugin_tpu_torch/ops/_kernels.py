@@ -17,6 +17,7 @@ module and has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,7 +49,7 @@ SIGNATURES = {
     "tbr_row_lerp": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbr_row_lerp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbr_tf_alpha": [_P, _P, _P, _P, ctypes.c_longlong, _F, _P],
-    "tbr_tf_alpha_bwd": [_P] * 6 + [ctypes.c_longlong, _F, _I, _P],
+    "tbr_tf_alpha_bwd": [_P] * 9 + [ctypes.c_longlong, _F, _I, _P],
     "tbr_light_scan": [_P, _P, _P, ctypes.c_ulonglong] + [_I] * 14
     + [_F, _I, _F, _P, _F, _P],
     "tbr_device_attribute": [_I],
@@ -192,6 +193,28 @@ def stream_of(t: torch.Tensor) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device (no Python
     stream object is built)."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# Counts of finished blocks of the kernels whose last block finishes the
+# call (K8, K10b), one per device and stream: launches on one stream never
+# overlap, and the last block sets the count back to 0.
+_DONE_COUNTERS: dict = {}
+
+
+def done_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The finished-block count of ``stream`` on ``device``, zero-filled
+    when it is first asked for."""
+    key = (device.index, stream)
+    if key not in _DONE_COUNTERS:
+        _DONE_COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                          device=device)
+    return _DONE_COUNTERS[key]
 
 
 def sum_partials(partials: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ from . import composite as C
 from .compositing import EARLY_TERMINATION_ALPHA
 from .shearwarp import ShearWarpPlan
 from .tf_alpha import _assemble, _clip_grad
-from .tf_rgba import warp_rounds
+from .tf_alpha import warp_rounds
 
 _NT = 4 * 256  # K5's d TF row: [channel(4)][texel(256)]
 _ROW = _NT + 2  # + d center, d width
@@ -48,7 +48,7 @@ def _add_clustering(ia, hit, acc: dict) -> None:
     """Add to ``acc`` how one plane's histogram adds cluster: ``ia`` the
     flat floor texels of the plane's pixels, ``hit`` where a pixel adds;
     the rounds of each warp of 32 consecutive pixels
-    (`tf_rgba.warp_rounds`); a run is a maximal sequence of consecutive
+    (`tf_alpha.warp_rounds`); a run is a maximal sequence of consecutive
     hitting pixels on one texel."""
     if ia.numel() == 0:
         return

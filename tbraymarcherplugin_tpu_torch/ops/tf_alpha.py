@@ -17,7 +17,11 @@ import torch
 
 from . import _kernels
 
-_BWD_BLOCKS = 132 * 8  # K8's grid: its per-block partial rows
+# K8 (csrc/tf_alpha_bwd.cu): at most one block of 1024 threads per SM, each
+# thread on runs of 4 elements; per block one row of partials (the alpha
+# column's 256 texels, d center, d width)
+_BWD_PER_BLOCK = 1024 * 4
+_BWD_ROW = 256 + 2
 
 
 def _window(windowing_vec4, device):
@@ -94,12 +98,51 @@ def _assemble(h0, h1):
     return h0 + torch.nn.functional.pad(h1[..., :-1], (1, 0))
 
 
+def warp_rounds(i0: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """Per warp of 32 consecutive flat elements (the last one padded), the
+    largest number of hitting elements on one texel of ``i0`` (0 for a
+    warp with no hit): the one-at-a-time add rounds of a warp whose lanes
+    take one element each."""
+    n = i0.numel()
+    pad = -n % 32
+    lane = torch.arange(n + pad, device=i0.device)
+    # a miss gets a key of its own (below every texel), so it groups with
+    # nothing
+    key = torch.cat([torch.where(hit, i0, -1 - lane[:n] % 32),
+                     -1 - lane[n:] % 32]).view(-1, 32)
+    s = torch.sort(key, dim=1).values
+    pos = torch.arange(32, device=i0.device).expand_as(s)
+    start = torch.ones_like(s, dtype=torch.bool)
+    start[:, 1:] = s[:, 1:] != s[:, :-1]
+    first = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
+                         dim=1).values
+    group = torch.where(s >= 0, pos - first + 1, torch.zeros_like(pos))
+    return group.amax(dim=1)
+
+
+def histogram_stats(i0: torch.Tensor, hit: torch.Tensor) -> dict:
+    """How the histogram adds of the flat texels ``i0`` (only where ``hit``)
+    cluster: ``hit``, the share of elements that add; ``rounds_mean`` and
+    ``rounds_max`` of :func:`warp_rounds`; ``run_mean``, the mean length of
+    the runs of equal ``i0`` along the elements."""
+    i0, hit = i0.flatten(), hit.flatten()
+    n = i0.numel()
+    rounds = warp_rounds(i0, hit) if n else None
+    runs = 1 + int((i0[1:] != i0[:-1]).sum()) if n else 0
+    return dict(hit=float(hit.float().mean()) if n else 0.0,
+                rounds_mean=float(rounds.float().mean()) if n else 0.0,
+                rounds_max=int(rounds.max()) if n else 0,
+                run_mean=n / runs if n else 0.0)
+
+
 def windowed_tf_alpha_bwd_plain(values, tf_table, windowing_vec4,
-                                step_size: float, g):
+                                step_size: float, g, stats=None):
     """Cotangents of :func:`windowed_tf_alpha` for the output cotangent
     ``g``: (d values, d TF (256, 4) with zeros in RGB, d window (4,) =
     (d center, d width, 0, 0)); the kernel's arithmetic, one PyTorch
-    operation per step."""
+    operation per step. A ``stats`` dict is filled with
+    :func:`histogram_stats` of the histogram's floor texels (an element
+    hits when its alpha cotangent is not zero)."""
     dev = values.device
     width = _window(windowing_vec4, dev)[1]
     step = float(step_size)
@@ -125,6 +168,8 @@ def windowed_tf_alpha_bwd_plain(values, tf_table, windowing_vec4,
     h[1].index_add_(0, i0.flatten(), wb.flatten())
     dtf = torch.zeros((256, 4), dtype=torch.float32, device=dev)
     dtf[:, 3] = _assemble(h[0], h[1])
+    if stats is not None:
+        stats.update(histogram_stats(i0, ga != 0.0))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return dval, dtf, torch.stack([dc, dw, zero, zero])
 
@@ -132,7 +177,8 @@ def windowed_tf_alpha_bwd_plain(values, tf_table, windowing_vec4,
 def windowed_tf_alpha_bwd(values, tf_table, windowing_vec4, step_size: float,
                           g):
     """Cotangents of :func:`windowed_tf_alpha`; see
-    :func:`windowed_tf_alpha_bwd_plain`. The histogram and the window sums
+    :func:`windowed_tf_alpha_bwd_plain`. One device operation: the kernel's
+    last block writes d TF and d window. The histogram and the window sums
     reduce in a fixed order: the same bits on every run."""
     if values.device.type == "cpu":
         return windowed_tf_alpha_bwd_plain(values, tf_table, windowing_vec4,
@@ -147,23 +193,21 @@ def windowed_tf_alpha_bwd(values, tf_table, windowing_vec4, step_size: float,
     if tuple(tf_table.shape) != (256, 4) or g.shape != values.shape:
         raise ValueError("tf_table must be (256, 4) and g shaped as values")
     n = values.numel()
-    blocks = min(-(-n // 256), _BWD_BLOCKS)
+    blocks = max(1, min(-(-n // _BWD_PER_BLOCK), _kernels.sm_count(dev)))
     dval = torch.empty_like(values)
-    partials = torch.empty((max(blocks, 1), 514), dtype=torch.float32,
+    partials = torch.empty((blocks, _BWD_ROW), dtype=torch.float32,
                            device=dev)
-    if blocks == 0:
-        partials.zero_()
+    dtf = torch.empty((256, 4), dtype=torch.float32, device=dev)
+    dwin = torch.empty(4, dtype=torch.float32, device=dev)
+    stream = _kernels.stream_of(values)
     _kernels.launch(
         "tbr_tf_alpha_bwd", values.data_ptr(), tf_table.data_ptr(),
         win.data_ptr(), g.data_ptr(), dval.data_ptr(), partials.data_ptr(),
-        n, float(step_size), blocks, _kernels.stream_of(values),
+        _kernels.done_counter(dev, stream).data_ptr(), dtf.data_ptr(),
+        dwin.data_ptr(), n, float(step_size), blocks, stream,
     )
-    sums = _kernels.sum_partials(partials)
     windowed_tf_alpha_bwd.launches += 1
-    dtf = torch.zeros((256, 4), dtype=torch.float32, device=dev)
-    dtf[:, 3] = _assemble(sums[:256], sums[256:512])
-    zero = torch.zeros(2, dtype=torch.float32, device=dev)
-    return dval, dtf, torch.cat([sums[512:514], zero])
+    return dval, dtf, dwin
 
 
 windowed_tf_alpha_bwd.launches = 0

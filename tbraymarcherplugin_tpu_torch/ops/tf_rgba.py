@@ -17,22 +17,14 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .tf_alpha import _assemble, _clip_grad, _taps, _window
+from .tf_alpha import (_assemble, _clip_grad, _taps, _window,
+                       histogram_stats)
 
 # K10b (csrc/tf_rgba_bwd.cu): one block of 1024 threads per SM, each thread
 # on runs of 4 elements; per block one row of partials (the 4 x 256
 # histogram, d center, d width)
 _BWD_PER_BLOCK = 1024 * 4
 _BWD_ROW = 4 * 256 + 2
-# K10b's count of finished blocks, one per stream (launches on one stream
-# never overlap): 0 between launches, the last block sets it back
-_COUNTERS: dict = {}
-
-
-def _counter(dev: torch.device, stream: int) -> torch.Tensor:
-    if stream not in _COUNTERS:
-        _COUNTERS[stream] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _COUNTERS[stream]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -102,43 +94,6 @@ def windowed_tf_rgba(values: torch.Tensor, tf_table: torch.Tensor,
 
 
 windowed_tf_rgba.launches = 0
-
-
-def warp_rounds(i0: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
-    """Per warp of 32 consecutive flat elements (the last one padded), the
-    largest number of hitting elements on one texel of ``i0`` (0 for a
-    warp with no hit): the one-at-a-time add rounds of a warp whose lanes
-    take one element each."""
-    n = i0.numel()
-    pad = -n % 32
-    lane = torch.arange(n + pad, device=i0.device)
-    # a miss gets a key of its own (below every texel), so it groups with
-    # nothing
-    key = torch.cat([torch.where(hit, i0, -1 - lane[:n] % 32),
-                     -1 - lane[n:] % 32]).view(-1, 32)
-    s = torch.sort(key, dim=1).values
-    pos = torch.arange(32, device=i0.device).expand_as(s)
-    start = torch.ones_like(s, dtype=torch.bool)
-    start[:, 1:] = s[:, 1:] != s[:, :-1]
-    first = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
-                         dim=1).values
-    group = torch.where(s >= 0, pos - first + 1, torch.zeros_like(pos))
-    return group.amax(dim=1)
-
-
-def histogram_stats(i0: torch.Tensor, hit: torch.Tensor) -> dict:
-    """How the histogram adds of the flat texels ``i0`` (only where ``hit``)
-    cluster: ``hit``, the share of elements that add; ``rounds_mean`` and
-    ``rounds_max`` of :func:`warp_rounds`; ``run_mean``, the mean length of
-    the runs of equal ``i0`` along the elements."""
-    i0, hit = i0.flatten(), hit.flatten()
-    n = i0.numel()
-    rounds = warp_rounds(i0, hit) if n else None
-    runs = 1 + int((i0[1:] != i0[:-1]).sum()) if n else 0
-    return dict(hit=float(hit.float().mean()) if n else 0.0,
-                rounds_mean=float(rounds.float().mean()) if n else 0.0,
-                rounds_max=int(rounds.max()) if n else 0,
-                run_mean=n / runs if n else 0.0)
 
 
 def windowed_tf_rgba_bwd_plain(values, tf_table, windowing_vec4, step, g,
@@ -212,8 +167,7 @@ def windowed_tf_rgba_bwd(values, tf_table, windowing_vec4, step, g,
     if tuple(tf_table.shape) != (256, 4) or g.shape != values.shape + (4,):
         raise ValueError("tf_table must be (256, 4) and g shaped (*values, 4)")
     n = values.numel()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // _BWD_PER_BLOCK), sms))
+    blocks = max(1, min(-(-n // _BWD_PER_BLOCK), _kernels.sm_count(dev)))
     dval = torch.empty_like(values)
     dstep = torch.empty_like(values) if need_step else None
     partials = torch.empty((blocks, _BWD_ROW), dtype=torch.float32,
@@ -225,8 +179,8 @@ def windowed_tf_rgba_bwd(values, tf_table, windowing_vec4, step, g,
         "tbr_tf_rgba_bwd", values.data_ptr(), tf_table.data_ptr(),
         win.data_ptr(), step.data_ptr(), g.data_ptr(), dval.data_ptr(),
         dstep.data_ptr() if need_step else None, partials.data_ptr(),
-        _counter(dev, stream).data_ptr(), dtf.data_ptr(), dwin.data_ptr(), n,
-        step.numel(), blocks, stream,
+        _kernels.done_counter(dev, stream).data_ptr(), dtf.data_ptr(),
+        dwin.data_ptr(), n, step.numel(), blocks, stream,
     )
     windowed_tf_rgba_bwd.launches += 1
     return dval, dtf, dwin, dstep

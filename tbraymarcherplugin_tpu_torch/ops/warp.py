@@ -23,7 +23,6 @@ import torch
 from . import _kernels
 from .shearwarp import ShearWarpPlan, screen_fields, warp_rows
 
-_MAX_GRID_Y = 65535
 # K6 takes rows of N texels whose 4 N floats fit a block's shared memory
 # (a warp keeps one row's accumulators, a block 1 to 8 warps)
 _MAX_BWD_SMEM = 227 * 1024
@@ -65,8 +64,6 @@ def row_lerp(rows: torch.Tensor, idx: torch.Tensor,
     idx = idx.contiguous()
     _kernels.check(rows, "rows", torch.float32, rows.device)
     _kernels.check(idx, "idx", torch.float32, rows.device)
-    if R > _MAX_GRID_Y:
-        raise ValueError(f"row_lerp takes at most {_MAX_GRID_Y} rows, got {R}")
     out = torch.empty((R, Q), dtype=torch.float32, device=rows.device)
     _kernels.launch(
         "tbr_row_lerp", rows.data_ptr(), idx.data_ptr(), out.data_ptr(), R,

@@ -1,5 +1,5 @@
-"""Hold the kernels K1, K4, K5, K6, K7 and K9 of this checkout against
-another checkout's build of them, on the main path's own inputs.
+"""Hold the kernels K1, K2, K4, K5, K6, K7, K8 and K9 of this checkout
+against another checkout's build of them, on the main path's own inputs.
 
     python -m tbraymarcherplugin_tpu_torch.tools.compare_kernels OTHER
 
@@ -9,29 +9,32 @@ root of another checkout (an earlier commit, unpacked with ``git
 archive``); its ``tbraymarcherplugin_tpu_torch`` is imported under another
 name and builds its kernels into its own ``_build/``. The inputs are those
 of ``chip_smoke.py``'s phases 4 (lit K1 with jitter; K4 on the rebuild's
-primary and secondary face), 5 (K5, both warp passes' K6 and the first
-face's K7 of the fused fwd+bwd step), 6 (K9 at the fly-through camera and
-at the bench camera forced to march; this checkout's call keeps the
-occupancy grid the path gave it, the other's goes without where its
-wrapper takes none) and 10 (K1's intensity, unlit and λ-ceiling
-variants). For each kernel it prints whether both builds give the same
-bits (K1's, K4's and K9's output; K7's d opacity, sum m and m_0; K5's dW
-and dL, and the largest difference of d TF and d window over their
-largest value, which sum in another order; K6's d rows, the largest
-difference over the largest value where the bits differ), and the device
-time of each (``chip_smoke.device_ms``), taken in turns: other, this,
-this, other; for K4 also the time of back-to-back calls
+primary and secondary face), 5 (both warp passes' K2, K5, both warp
+passes' K6 and the first face's K7 and K8 of the fused fwd+bwd step), 6
+(K9 at the fly-through camera and at the bench camera forced to march;
+this checkout's call keeps the occupancy grid the path gave it, the
+other's goes without where its wrapper takes none) and 10 (K1's
+intensity, unlit and λ-ceiling variants). For each kernel it prints
+whether both builds give the same bits (K1's, K2's, K4's and K9's output;
+K7's d opacity, sum m and m_0; K5's dW and dL, and the largest difference
+of d TF and d window over their largest value, which sum in another
+order; K6's d rows and K8's d values, d TF and d window, the largest
+difference over the largest value where the bits differ, and for K8
+whether this build gives the same bits on two runs), and the device time
+of each (``chip_smoke.device_ms``), taken in turns: other, this, this,
+other; for K2, K4 and K8 also the time of back-to-back calls
 (``chip_smoke.cuda_ms``, which holds the host where the host is slower).
 Then the peak device memory of one fused fwd+bwd step through each K5;
-the fused step's host ms and device ms through each checkout's K4 and K6;
-the illumination rebuild (one light, two faces) and a light move (four
-faces), host ms and device ms, through each checkout's `Renderer`, in
-turns. Then the renderer at the fly-through camera: a window drag, each
-frame after a new window center (which rebuilds the illumination and,
-with empty-space skipping, the occupancy grid), through the other
-checkout's renderer, this one's and this one's without skipping, in turns;
-and this one's "blocked" march with the grid at mip 1 and at mip 3, in
-turns, with each grid's build. The last line is one JSON object of it all.
+the fused step's host ms and device ms through each checkout's K2, K4, K6
+and K8; the illumination rebuild (one light, two faces), a light move
+(four faces) and the lit frame at the bench camera, host ms and device
+ms, through each checkout's `Renderer`, in turns. Then the renderer at the
+fly-through camera: a window drag, each frame after a new window center
+(which rebuilds the illumination and, with empty-space skipping, the
+occupancy grid), through the other checkout's renderer, this one's and
+this one's without skipping, in turns; and this one's "blocked" march
+with the grid at mip 1 and at mip 3, in turns, with each grid's build.
+The last line is one JSON object of it all.
 Needs a CUDA device.
 """
 
@@ -68,11 +71,18 @@ def load_other(root) -> dict:
 
 # kernel name -> the module under ``ops`` and the wrapper that launches it
 WRAPPERS = (("composite", "composite", "composite"),
+            ("row_lerp", "warp", "row_lerp"),
             ("light_scan", "light_scan", "propagate_face_scan"),
             ("composite_bwd", "shearwarp_grad", "composite_bwd"),
             ("row_lerp_bwd", "warp", "row_lerp_bwd"),
             ("light_scan_bwd", "light_scan", "propagate_face_scan_bwd"),
+            ("tf_alpha_bwd", "tf_alpha", "windowed_tf_alpha_bwd"),
             ("march", "fused_march", "march_lit_fused"))
+# the kernels whose kernel ms (back-to-back calls) is printed beside their
+# device ms
+KERNEL_MS = ("light_scan", "tf_alpha_bwd", "row_lerp")
+# the kernels of the fused fwd+bwd step swapped for the other checkout's
+FUSED_SWAPS = ("row_lerp", "light_scan", "row_lerp_bwd", "tf_alpha_bwd")
 
 
 # the window centers a drag alternates between, one per frame
@@ -162,13 +172,13 @@ def renderer_phases(CS, dev, card) -> dict:
 
 def fused_step_turns(CS, step, mine, other, card) -> dict:
     """Host ms and device ms of the fused fwd+bwd step through this
-    checkout's K4 and K6 and through the other's, in turns."""
+    checkout's K2, K4, K6 and K8 and through the other's, in turns."""
     out = {"this": {"host_ms": [], "device_ms": []},
            "other": {"host_ms": [], "device_ms": []}}
     for who in ("other", "this", "this", "other"):
         with contextlib.ExitStack() as stack:
             if who == "other":
-                for name in ("light_scan", "row_lerp_bwd"):
+                for name in FUSED_SWAPS:
                     (mod, fn), (omod, ofn) = mine[name], other[name]
                     stack.enter_context(
                         mock.patch.object(mod, fn, getattr(omod, ofn)))
@@ -179,7 +189,8 @@ def fused_step_turns(CS, step, mine, other, card) -> dict:
             out[who]["device_ms"].append(CS.device_ms(
                 torch, lambda: step(CS.FWD_BWD_CENTERS[2]), 2)[0])
     for who, t in out.items():
-        print(f"[compare] fused fwd+bwd step through {who} K4 and K6: host "
+        print(f"[compare] fused fwd+bwd step through {who} K2, K4, K6 and "
+              f"K8: host "
               f"ms {', '.join(f'{x:.2f}' for x in t['host_ms'])}, device "
               f"ms {', '.join(f'{x:.3f}' for x in t['device_ms'])} | {card}",
               flush=True)
@@ -191,9 +202,10 @@ MOVED_LIGHT = (0.1, 0.4, -0.9)
 
 def lighting_turns(CS, dev, card) -> dict:
     """Host ms and device ms of the illumination rebuild (one light, after
-    a new window center) and of a light move (the light swapped between
-    two directions: four faces) through the other checkout's `Renderer`
-    and this one's, in turns."""
+    a new window center), of a light move (the light swapped between two
+    directions: four faces) and of the lit frame at the bench camera
+    (illumination built) through the other checkout's `Renderer` and this
+    one's, in turns."""
     from ..ops import synthetic
 
     volume = torch.from_numpy(synthetic.ct_like_phantom(CS.DIMS, seed=0)).to(
@@ -223,11 +235,16 @@ def lighting_turns(CS, dev, card) -> dict:
             d = (MOVED_LIGHT, CS.LIGHT_DIR)[next(n_move) % 2]
             r.update_light("sun", S.DirLight.create(d, 1.0))
             r.ensure_lighting()
-        return {"rebuild": rebuild, "light move": move}
+        cam = S.Camera.look_at(CS.CAM_POS, 0.0, fov_degrees=CS.FOV)
+
+        def frame():
+            return r.render(cam, CS.WIDTH, CS.HEIGHT)
+        return {"rebuild": rebuild, "light move": move, "lit frame": frame}
 
     out = {}
     for who in ("other", "this", "this", "other"):
         fns = make("other_port" if who == "other" else here)
+        fns["lit frame"]()  # the grid and the light of its second frame on
         for what, fn in fns.items():
             host = [CS.host_ms(torch, fn)[1] for _ in range(4)]
             t = out.setdefault(what, {}).setdefault(
@@ -291,18 +308,21 @@ def path_inputs(CS, dev) -> dict:
         r.ensure_lighting()
     calls["light_scan"], calls["light_scan_secondary"] = got["light_scan"]
 
-    # phase 5: K5, both passes' K6 and the first face's K7 of a fused
-    # fwd+bwd step
+    # phase 5: both passes' K2, K5, both passes' K6 and the first face's K7
+    # and K8 of a fused fwd+bwd step
     step = CS.make_fwd_bwd_step(
         torch, volume, cam, transform, clip, CS.WIDTH, CS.HEIGHT,
         dict(march_impl="shearwarp", shearwarp_tf_unit="fused",
              shearwarp_dtype=None), max_planes=CS.STEPS)
     got = {}
-    with CS.capture_calls(got, ["composite_bwd", "light_scan_bwd",
-                                "row_lerp_bwd"]):
+    with CS.capture_calls(got, ["row_lerp", "composite_bwd",
+                                "light_scan_bwd", "row_lerp_bwd",
+                                "tf_alpha_bwd"]):
         step(CS.FWD_BWD_CENTERS[0])
+    calls["row_lerp_pass1"], calls["row_lerp_pass2"] = got["row_lerp"]
     calls["composite_bwd"] = got["composite_bwd"][0]
     calls["light_scan_bwd"] = got["light_scan_bwd"][0]
+    calls["tf_alpha_bwd"] = got["tf_alpha_bwd"][0]
     # the backward takes the screen pass first
     calls["row_lerp_bwd_pass2"], calls["row_lerp_bwd_pass1"] = (
         got["row_lerp_bwd"])
@@ -391,6 +411,13 @@ def main(argv=None) -> int:
             elif kernel == "row_lerp_bwd":
                 same = torch.equal(a, b)
                 rel = float((a - b).abs().max() / b.abs().max())
+            elif kernel == "tf_alpha_bwd":
+                same = all(torch.equal(x, y) for x, y in zip(a, b))
+                rel = max(float((x - y).abs().max() / y.abs().max())
+                          for x, y in zip(a, b) if y.any())
+                again = this_fn(*args, **kw)
+                repeat = all(torch.equal(x, y) for x, y in zip(a, again))
+                del again
             else:
                 same, rel = torch.equal(a, b), float((a - b).abs().max())
             del a, b
@@ -400,14 +427,18 @@ def main(argv=None) -> int:
                 f, k = (this_fn, kw) if who == "this" else (other_fn, okw)
                 times[who].append(CS.device_ms(
                     torch, lambda f=f, k=k: f(*args, **k), 5)[0])
-                if kernel == "light_scan":
+                if kernel in KERNEL_MS:
                     kernel_ms[who].append(CS.cuda_ms(
                         torch, lambda f=f, k=k: f(*args, **k), 10))
             result[name] = dict(same_bits=same, other_diff=rel,
                                 device_ms=times["this"],
                                 other_device_ms=times["other"])
             what = {"composite_bwd": "d TF, d window relative",
-                    "row_lerp_bwd": "relative"}.get(kernel, "max abs")
+                    "row_lerp_bwd": "relative",
+                    "tf_alpha_bwd": "relative"}.get(kernel, "max abs")
+            if kernel == "tf_alpha_bwd":
+                result[name]["same_bits_run_to_run"] = repeat
+                what += f"; this build's bits on two runs equal {repeat}"
             line = (f"device ms this "
                     f"{', '.join(f'{t:.4f}' for t in times['this'])}, other "
                     f"{', '.join(f'{t:.4f}' for t in times['other'])}")

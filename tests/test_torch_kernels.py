@@ -196,6 +196,50 @@ def test_row_lerp_kernel_exact_far_beyond_band(cuda, gen):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.mark.parametrize("q", [1920, 1083, 5])
+@pytest.mark.parametrize("groups", [1, 3, 4])
+def test_row_lerp_kernel_exact_any_width_and_groups(cuda, gen, q, groups):
+    """Q a multiple of 4 (16-byte index loads and stores) or not (scalar
+    ones), one to four channel rows per index row; indices past both ends
+    and across the whole row: exactly the plain version."""
+    rq, n = 37, 1280
+    rows = torch.from_numpy(gen.random((groups * rq, n), dtype=np.float32)
+                            ).to(cuda)
+    idx = torch.from_numpy((gen.random((rq, q)) * (n + 40.0) - 20.0).astype(
+        np.float32)).to(cuda)
+    got = PW.row_lerp(rows, idx, groups)
+    want = PW.row_lerp_plain(rows, idx, groups)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) == 0.0
+
+
+def test_row_lerp_kernel_exact_on_an_unaligned_index_view(cuda, gen):
+    """An index view one float into its storage takes the scalar loads."""
+    rows = torch.from_numpy(gen.random((4 * 50, 700), dtype=np.float32)
+                            ).to(cuda)
+    flat = torch.from_numpy((gen.random(50 * 400 + 1) * 720.0 - 10.0).astype(
+        np.float32)).to(cuda)
+    idx = flat[1:].view(50, 400)
+    assert idx.data_ptr() % 16
+    got = PW.row_lerp(rows, idx, 4)
+    want = PW.row_lerp_plain(rows, idx, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_row_lerp_kernel_exact_beyond_65535_rows(cuda, gen):
+    """More rows than a grid's second dimension holds (the first design's
+    limit): the threads lie flat over (index row, q)."""
+    rq, q, n = 70_000, 12, 16
+    rows = torch.from_numpy(gen.random((rq, n), dtype=np.float32)).to(cuda)
+    idx = torch.from_numpy((gen.random((rq, q)) * 18.0 - 1.0).astype(
+        np.float32)).to(cuda)
+    got = PW.row_lerp(rows, idx, 1)
+    want = PW.row_lerp_plain(rows, idx, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("pos", [(0.1, -2.3, 0.4), (2.1, 0.7, 0.9)])
 def test_warp_kernel_matches_plain(cuda, gen, pos):
     plan = _plan((64, 64, 64), 640, 360, pos=pos)
@@ -450,6 +494,108 @@ def test_tf_alpha_bwd_kernel_matches_plain(cuda, gen):
         _close(got[0], want[0], 1e-5, 1e-6, "dval")
         _close(got[1], want[1], 1e-4, 1e-5, "dtf")
         _close(got[2], want[2], 1e-4, 1e-5, "dwin")
+
+
+def _alpha_case(case, gen, n):
+    """K8's (values, g, TF table, window) of one kind: a field clamped below
+    texel 0 (its low cutoff off), or above texel 255 (its high cutoff off);
+    every element cut; g all zero; or uniform values. The TF's alpha lies
+    in (0.1, 0.9), so every element that is not cut adds."""
+    tf = np.zeros((256, 4), np.float32)
+    tf[:, 3] = 0.1 + 0.8 * gen.random(256, dtype=np.float32)
+    win = [0.5, 0.8, 1.0, 1.0]
+    g = gen.standard_normal(n).astype(np.float32)
+    if case == "below_texel_0":
+        vals, win = gen.random(n, dtype=np.float32) * 0.1, [0.5, 0.8, 0.0, 1.0]
+    elif case == "above_texel_255":
+        vals, win = 0.95 + gen.random(n, dtype=np.float32) * 0.1, [0.5, 0.8,
+                                                                   1.0, 0.0]
+    elif case == "all_cut":
+        vals = gen.random(n, dtype=np.float32) * 0.09
+    else:
+        vals = gen.random(n, dtype=np.float32) * 1.4 - 0.2
+        if case == "g_zero":
+            g = np.zeros(n, np.float32)
+    return vals, g, tf, win
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 4 * 1024 * 133 + 3, 300_001])
+@pytest.mark.parametrize("case", ["below_texel_0", "above_texel_255",
+                                  "all_cut", "g_zero", "random"])
+def test_tf_alpha_bwd_kernel_on_clamped_cut_and_ragged_fields(cuda, gen, n,
+                                                              case):
+    """K8 on a field whose every warp sits on texel 0 (or 255), on a field
+    the window cuts whole, on a zero cotangent, and on element counts of 0,
+    1, 255 and two that are not a multiple of a thread's run of 4 (the
+    first more than one pass of a grid of one block per SM): the same bits
+    on two launches, within the limits of
+    `test_tf_alpha_bwd_kernel_matches_plain`."""
+    vals, g, tf, win = (torch.tensor(x, device=cuda)
+                        for x in _alpha_case(case, gen, n))
+    stats = {}
+    want = PK3.windowed_tf_alpha_bwd_plain(vals, tf, win, 1.3, g,
+                                           stats=stats)
+    if case == "below_texel_0" and n:
+        assert stats["hit"] == 1.0 and stats["rounds_max"] == min(n, 32)
+    got = PK3.windowed_tf_alpha_bwd(vals, tf, win, 1.3, g)
+    again = PK3.windowed_tf_alpha_bwd(vals, tf, win, 1.3, g)
+    torch.cuda.synchronize()
+    assert got[0].shape == (n,) and got[1].shape == (256, 4)
+    assert got[2].shape == (4,)
+    assert _same_bits(got, again)  # fixed-order reductions
+    if n:
+        _close(got[0], want[0], 1e-5, 1e-6, "dval")
+    _close(got[1], want[1], 1e-4, 1e-5, "dtf")
+    _close(got[2], want[2], 1e-4, 1e-5, "dwin")
+    assert not got[1][:, :3].any() and not got[2][2:].any()
+    if case in ("all_cut", "g_zero") or n == 0:
+        assert not got[0].any() and not got[1].any() and not got[2].any()
+
+
+def test_tf_alpha_bwd_kernel_on_unaligned_views(cuda, gen):
+    """values and g one float into their storage (not on 16 bytes): the
+    scalar loads give the bits of aligned copies."""
+    n = 64 * 64 * 64
+    flat = torch.from_numpy(gen.random(n + 1, dtype=np.float32) * 1.4 - 0.2
+                            ).to(cuda)
+    gflat = torch.from_numpy(gen.standard_normal(n + 1).astype(np.float32)
+                             ).to(cuda)
+    vals, g = flat[1:].view(64, 64, 64), gflat[1:].view(64, 64, 64)
+    assert vals.data_ptr() % 16 and g.data_ptr() % 16
+    tf = T.tf_ct_bone(device=cuda)
+    w = torch.tensor(WINDOWS[0], device=cuda)
+    got = PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7, g)
+    want = PK3.windowed_tf_alpha_bwd(vals.clone(), tf, w, 1.7, g.clone())
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+
+
+def test_tf_alpha_bwd_kernel_is_one_device_operation(cuda, gen):
+    """One call is one kernel (d TF and d window written by its last
+    block); calls on one stream, each after the counter went back to 0,
+    give the same bits, on the default stream and on another."""
+    vals = torch.from_numpy(
+        gen.random((64, 96, 80), dtype=np.float32) * 1.4 - 0.2).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((64, 96, 80)).astype(
+        np.float32)).to(cuda)
+    tf = T.tf_ct_bone(device=cuda)
+    w = torch.tensor(WINDOWS[0], device=cuda)
+    assert _device_ops(lambda: PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7,
+                                                         g)) == 1
+    first = PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7, g)
+    runs = [PK3.windowed_tf_alpha_bwd(vals[: 64 - k], tf, w, 1.7, g[: 64 - k])
+            for k in range(4)]  # other grids in between
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        on_side = PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7, g)
+    side.synchronize()
+    last = PK3.windowed_tf_alpha_bwd(vals, tf, w, 1.7, g)
+    torch.cuda.synchronize()
+    assert _same_bits(first, runs[0]) and _same_bits(first, last)
+    assert _same_bits(first, on_side)
+    key = (cuda.index or 0, PK3._kernels.stream_of(vals))
+    assert int(PK3._kernels._DONE_COUNTERS[key]) == 0
 
 
 @pytest.mark.parametrize("off", [(0.37, -1.6), (-10.4, 3.3), (2.0, 0.0)])
