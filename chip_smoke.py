@@ -103,7 +103,27 @@ Phases, one line each:
      drags and a TF change, each 1024^2 frame different from the last; the
      SDF demo (`ops/sdf_march.py`) at 512^2 on the card and at 64^2 on the
      card against the CPU; one CLI frame under `utils.profiling.
-     device_trace`, whose trace file must appear.
+     device_trace`, whose trace file must appear;
+ 12. parallel: the `parallel` package on a world-1 NCCL group
+     (`parallel.distributed.initialize_multihost` with a file store,
+     `make_mesh`): `shearwarp_lit_sharded_diff` on the bench scene (bf16
+     planes, window center 0.55 against the frame at 0.5), its frame, loss
+     and (dvolume, dtf, dwindow) the same bits as the single-device fused
+     path, K1, K5, K2 and K6 counted, timed with its peak device memory;
+     `shearwarp_lit_sharded` the same bits as `shearwarp_lit`; a 4-way
+     column split's ranks in turn (float32 planes): each slab's K1 and K5
+     calls against their plain versions, the slabs against the full
+     intermediate (rtol 1e-5, atol 1e-6) and their summed gradients
+     against the full-width ones (rtol 5e-3, atol 1e-5 of the largest);
+     `make_sharded_train_step` on 480x270 rays, 64 steps per unit: one
+     Adam step bulk, one bulk again and one overlapped, the loss the bits
+     of `render_lit_scene`'s, the gradients of the two modes against
+     each other beside the spread of two bulk steps (float atomics in the
+     march's backward), K3, K4, K7 and K8 counted; the slab paths on the
+     same rays (the ring against `march_lit`, the segment march against
+     `march_lit` without the snap, rtol 1e-4, atol 1e-5) and both sharded
+     illuminations against `compute_illumination` (rtol 1e-5, atol 1e-6),
+     K4 counted.
 Every kernel is timed two ways: ``ms``, CUDA events around back-to-back
 calls of its Python wrapper (host time included where the host is slower
 than the card), and ``device_ms``, the device work alone (`device_ms`:
@@ -316,6 +336,17 @@ SOURCES = {
 # surface, where an ulp of atan2/pow between the two moves a ray's hit by
 # a step (under 1% of the 64x64 rays on the CPU against the JAX package's
 # XLA build, tests/test_torch_sdf_march.py)
+# Phase 12: the ray-tile train step's and the slab marches' rays (fewer
+# than the frame's: the blocked march keeps a block's samples for all its
+# rays) and the train step's steps per unit (the JAX package's default).
+TRAIN_RAYS, TRAIN_STEPS = (480, 270), 64
+# Bulk against overlapped all-reduce gradients at world 1, as |a - b|_2 /
+# |b|_2 per leaf: the same sums in the same order (tests/test_torch_
+# parallel.py: the same bits on the CPU), but on the card the blocked
+# march's backward and the TF rows' histogram add with float atomics, so
+# two bulk steps differ too (the spread is printed beside it); the JAX
+# test's rtol (tests/test_sharding.py::test_overlapped_allreduce_grads_match).
+TRAIN_GRAD_LIMIT = 1e-5
 DICOM_SPACING = (0.7, 0.7, 1.0)
 CLI_ARGS = ["--size", f"{WIDTH}x{HEIGHT}", "--steps", str(STEPS), "--tf",
             "ct_bone", "--window-center", "0.5", "--window-width", "0.8"]
@@ -1741,6 +1772,327 @@ def from_disk_phase(torch, card):
     return cli_ms
 
 
+def _rel_err(torch, got, want):
+    """(max abs error, that over the largest |want|) of two tensors."""
+    d = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(math.isfinite(d), "non-finite output")
+    return d, d / scale if scale > 0 else d
+
+
+def _hold_to_plain(torch, calls, card, label):
+    """K1's and K5's recorded calls against their plain versions, at
+    LIMITS["composite"] (max abs) and BWD_LIMITS["composite_bwd"] (over
+    the largest plain value): the worst of each."""
+    from tbraymarcherplugin_tpu_torch.ops import composite, shearwarp_grad
+
+    worst = {}
+    with torch.no_grad():
+        for name, real, plain, limit, rel in (
+                ("composite", composite.composite, composite.composite_plain,
+                 LIMITS["composite"], False),
+                ("composite_bwd", shearwarp_grad.composite_bwd,
+                 shearwarp_grad.composite_bwd_plain,
+                 BWD_LIMITS["composite_bwd"], True)):
+            for args, kw in calls[name]:
+                for got, want in zip(as_tuple(real(*args, **kw)),
+                                     as_tuple(plain(*args, **kw))):
+                    err = _rel_err(torch, got, want)[1 if rel else 0]
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    check(err <= limit, f"{label}: {name} disagrees with its "
+                          f"plain version ({err:.3e} > {limit:.1e})")
+    return worst
+
+
+def parallel_phase(torch, volume, tf, light_volume, plan, cam, transform,
+                   clip, card, results):
+    """Phase 12 (see the module docstring): the `parallel` package on a
+    world-1 NCCL group; adds each of K1-K8's launches on the sharded paths
+    to ``results`` (``sharded_launches``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tbraymarcherplugin_tpu_torch import parallel as P
+    from tbraymarcherplugin_tpu_torch.parallel import distributed as D
+
+    # (a) a world-1 NCCL group on the card, and its meshes
+    store = tempfile.TemporaryDirectory()
+    D.initialize_multihost("file://" + store.name + "/store", 1, 0)
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"backend {backend}, not NCCL")
+        rays_mesh = P.make_mesh({"rays": 1})
+        slab_mesh = P.make_mesh({"slab": 1})
+        print(f"[parallel] (a) group: backend {backend}, world "
+              f"{dist.get_world_size()}, meshes {rays_mesh} and {slab_mesh} "
+              f"| {card}", flush=True)
+        _sharded_paths(torch, P, volume, tf, light_volume, plan, cam,
+                       transform, clip, card, rays_mesh, slab_mesh, results)
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+
+
+def _sharded_paths(torch, P, volume, tf, light_volume, plan, cam, transform,
+                   clip, card, rays_mesh, slab_mesh, results):
+    """Phase 12 (b)-(f) on the meshes of (a)."""
+    from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+    from tbraymarcherplugin_tpu_torch.ops import march as M
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+    from tbraymarcherplugin_tpu_torch.ops.rays import setup_rays
+    from tbraymarcherplugin_tpu_torch.ops.shearwarp_grad import (
+        shearwarp_intermediate_fused_diff as fused_diff,
+    )
+    from tbraymarcherplugin_tpu_torch.ops.warp import (
+        warp_to_screen_fused as warp_fused,
+    )
+    from tbraymarcherplugin_tpu_torch.parallel.shearwarp_sharding import (
+        shearwarp_slab,
+    )
+
+    dev = volume.device
+    cc, cd = clip.center, clip.direction
+    lv = light_volume
+    bf16 = torch.bfloat16
+    table = {name: (mod, fn) for name, mod, fn in kernel_table()[:8]}
+
+    def zero(names):
+        for n in names:
+            mod, fn = table[n]
+            getattr(mod, fn).launches = 0
+
+    def counts(names):
+        out = {}
+        for n in names:
+            mod, fn = table[n]
+            out[n] = getattr(mod, fn).launches
+            check(out[n] > 0, f"kernel {n} was not launched by the sharded "
+                  f"path")
+            results[n]["sharded_launches"] = (
+                results[n].get("sharded_launches", 0) + out[n])
+        return out
+
+    def win(center):
+        return torch.tensor([center, WINDOW[1], 1.0, 1.0], device=dev)
+
+    def same(a, b):
+        """Tensors, or sequences of them, with the same bits."""
+        a, b = (tuple(x) if isinstance(x, (tuple, list)) else (x,)
+                for x in (a, b))
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    # (b) the differentiable sharded shear-warp at full width, bf16 planes
+    swd = ("composite", "composite_bwd", "row_lerp", "row_lerp_bwd")
+    args = (volume, tf, lv, plan, win(FWD_BWD_CENTERS[0]), cc, cd, WIDTH,
+            HEIGHT)
+    with torch.no_grad():
+        target = P.shearwarp_lit_sharded_diff(
+            rays_mesh, volume, tf, lv, plan, win(WINDOW[0]), cc, cd, WIDTH,
+            HEIGHT, compute_dtype=bf16)
+    zero(swd)
+    img = P.shearwarp_lit_sharded_diff(rays_mesh, *args, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (loss, grads), ms = host_ms(torch, lambda: P.shearwarp_lit_sharded_diff(
+        rays_mesh, *args, target=target, compute_dtype=bf16))
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts(swd)
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (volume, tf, win(FWD_BWD_CENTERS[0]))]
+    img1 = warp_fused(fused_diff(leaves[0], leaves[1], lv, plan, leaves[2],
+                                 cc, cd, compute_dtype=bf16),
+                      plan, WIDTH, HEIGHT)
+    loss1 = ((img1 - target) ** 2).sum()
+    loss1.backward()
+    exact = (same(img, img1.detach()), same(loss, loss1.detach()),
+             same(grads, tuple(x.grad for x in leaves)))
+    print(f"[parallel] (b) shearwarp_lit_sharded_diff, world 1, "
+          f"{WIDTH}x{HEIGHT}, {DIMS[0]}^3, {plan.k} bf16 planes, window "
+          f"center {FWD_BWD_CENTERS[0]} against the frame at {WINDOW[0]}: "
+          f"loss {float(loss):.6f}, fwd+bwd {ms:.2f} ms (host clock), peak "
+          f"device memory {peak / 2**20:.1f} MiB ({before / 2**20:.1f} MiB "
+          f"before) | the same bits as the single-device fused path (image, "
+          f"loss, gradients): {exact} | launches {launches} | {card}",
+          flush=True)
+    check(all(exact), "the world-1 sharded diff shear-warp is not the "
+          "single-device fused path bit for bit")
+    check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+              for g in grads[:2]), "sharded gradients non-finite or zero")
+    del img, img1, loss1, leaves, grads
+
+    # (c) the forward sharded shear-warp (dense composite)
+    wf = win(WINDOW[0])
+    got, ms = host_ms(torch, lambda: P.shearwarp_lit_sharded(
+        rays_mesh, volume, tf, lv, plan, wf, cc, cd, WIDTH, HEIGHT))
+    want = SW.shearwarp_lit(volume, tf, lv, plan, wf, cc, cd, WIDTH, HEIGHT,
+                            block_size=16)
+    print(f"[parallel] (c) shearwarp_lit_sharded, world 1 (dense composite, "
+          f"blocks of 16 planes, float32): {ms:.2f} ms (host clock) | the "
+          f"same bits as shearwarp_lit: {torch.equal(got, want)} | {card}",
+          flush=True)
+    check(torch.equal(got, want), "the world-1 sharded forward shear-warp "
+          "is not shearwarp_lit bit for bit")
+    del got, want
+
+    # (d) a 4-way split's ranks in turn, float32 planes
+    world = 4
+    n2l = plan.n2 // world
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (volume, tf, win(FWD_BWD_CENTERS[0]))]
+    inter = fused_diff(leaves[0], leaves[1], lv, plan, leaves[2], cc, cd,
+                       compute_dtype=torch.float32)
+    loss_full = ((warp_fused(inter, plan, WIDTH, HEIGHT) - target) ** 2).sum()
+    g_inter, *full = torch.autograd.grad(loss_full, [inter, *leaves])
+    slabs, sums, worst = [], [torch.zeros_like(x) for x in leaves], {}
+    for rank in range(world):
+        calls = {}
+        with capture_calls(calls, ["composite", "composite_bwd"]):
+            slab = shearwarp_slab(leaves[0], leaves[1], lv, plan, rank,
+                                  world, leaves[2], cc, cd,
+                                  compute_dtype=torch.float32)
+            part = torch.autograd.grad(
+                slab, leaves, g_inter[..., rank * n2l:(rank + 1) * n2l])
+        slabs.append(slab.detach())
+        sums = [s + p for s, p in zip(sums, part)]
+        for k, v in _hold_to_plain(torch, calls, card,
+                                   f"slab {rank}").items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        del calls, slab, part
+    cat = torch.cat(slabs, dim=2)
+    inter_err = float(((cat - inter.detach()).abs()
+                       - 1e-5 * inter.detach().abs()).max())
+    inter_same = torch.equal(cat, inter.detach())
+    grad_errs = []
+    for name, s, f in zip(("dvolume", "dtf", "dwindow"), sums, full):
+        tol = 1e-5 * max(float(f.abs().max()), 1.0)
+        grad_errs.append(float(((s - f).abs() - 5e-3 * f.abs()).max() / tol))
+    print(f"[parallel] (d) 4-way split of n2={plan.n2} rank by rank "
+          f"(n2_local {n2l}, float32 planes): K1 vs plain max abs "
+          f"{worst['composite']:.3e} (limit {LIMITS['composite']:.0e}), K5 "
+          f"vs plain over the largest plain value "
+          f"{worst['composite_bwd']:.3e} (limit "
+          f"{BWD_LIMITS['composite_bwd']:.1e}) | concatenated slabs vs the "
+          f"full intermediate: max(|d| - 1e-5 |x|) {inter_err:.3e} (limit "
+          f"1e-6), the same bits: {inter_same} | summed slab gradients vs full width (dvolume, dtf, "
+          f"dwindow): max(|d| - 5e-3 |x|) over 1e-5 max(|x|, 1) "
+          f"{', '.join(f'{e:.3f}' for e in grad_errs)} (limit 1) | {card}",
+          flush=True)
+    check(inter_err <= 1e-6, "slabs != the full intermediate")
+    check(all(e <= 1.0 for e in grad_errs), "summed slab gradients != the "
+          "full-width gradients")
+    del leaves, inter, g_inter, full, slabs, sums, cat
+
+    # (e) the ray-tile train step, bulk and overlapped, 480x270 rays
+    rays = setup_rays(cam, transform, *TRAIN_RAYS, device=dev)
+    flat, _ = P.pad_rays_for_mesh(rays, 1)
+    plans = (PP.LightPlan.create(LIGHT_DIR, DIMS),)
+
+    def params(center):
+        return PP.RenderParams(
+            volume.detach().clone(), tf.detach().clone(),
+            torch.tensor(center, device=dev),
+            torch.tensor(WINDOW[1], device=dev),
+            torch.tensor([1.0], device=dev))
+
+    def l2(img, tgt):
+        return ((img - tgt) ** 2).sum()
+
+    with torch.no_grad():
+        tgt = PP.render_lit_scene(params(WINDOW[0]), flat, cc, cd, plans,
+                                  DIMS, step_count=TRAIN_STEPS)
+        loss_single = l2(PP.render_lit_scene(
+            params(FWD_BWD_CENTERS[0]), flat, cc, cd, plans, DIMS,
+            step_count=TRAIN_STEPS), tgt)
+    train = ("tf_alpha", "light_scan", "light_scan_bwd", "tf_alpha_bwd")
+    zero(train)
+    runs, step_ms = [], []
+    for overlap in (False, False, True):  # bulk twice: the atomics' spread
+        step, make_opt = P.make_sharded_train_step(
+            rays_mesh, l2, cc, cd, plans, DIMS, step_count=TRAIN_STEPS,
+            overlap_allreduce=overlap)
+        p = params(FWD_BWD_CENTERS[0])
+        leaves = [x.requires_grad_() for x in vars(p).values()]
+        opt = make_opt(leaves)
+        loss, ms = host_ms(torch, lambda: step(p, opt, flat, tgt))
+        runs.append((loss, [x.grad for x in leaves],
+                     [x.detach() for x in leaves]))
+        step_ms.append(ms)
+    launches = counts(train)
+
+    def grad_rel(a, b):
+        return max(float(torch.linalg.vector_norm(x - y))
+                   / max(float(torch.linalg.vector_norm(y)), 1e-30)
+                   for x, y in zip(a[1], b[1]))
+
+    spread, diff = grad_rel(runs[1], runs[0]), grad_rel(runs[2], runs[0])
+    same_loss = same(runs[0][0], loss_single) and same(runs[2][0],
+                                                       loss_single)
+    print(f"[parallel] (e) make_sharded_train_step, world 1, "
+          f"{TRAIN_RAYS[0]}x{TRAIN_RAYS[1]} rays (fewer than the slice's "
+          f"1920x1080 frame), {TRAIN_STEPS} steps per unit, one Adam step "
+          f"bulk, bulk again, overlapped: "
+          f"{', '.join(f'{m:.2f}' for m in step_ms)} ms (host clock) | loss "
+          f"{float(runs[0][0]):.6f}, the single-process render_lit_scene "
+          f"loss's bits in both modes: {same_loss} | gradients, largest "
+          f"|a - b|_2 / |b|_2 over the leaves: overlap vs bulk {diff:.3e} "
+          f"(limit {TRAIN_GRAD_LIMIT:.0e}), bulk vs bulk {spread:.3e} | "
+          f"Adam-stepped leaves the same bits, overlap vs bulk "
+          f"{same(runs[2][2], runs[0][2])}, bulk vs bulk "
+          f"{same(runs[1][2], runs[0][2])} | launches {launches} | {card}",
+          flush=True)
+    check(same_loss, "the train step's loss != the single-process loss")
+    check(diff <= TRAIN_GRAD_LIMIT, "bulk and overlapped all-reduce "
+          "gradients differ")
+    check(not torch.equal(runs[0][2][1], tf), "the Adam step did not move "
+          "the TF")
+    del runs
+
+    # (f) the slab paths, 480x270 rays
+    wf = win(WINDOW[0])
+    margs = (volume, tf, lv, rays, wf, cc, cd)
+    checks = []
+    for name, fn, ref in (
+            ("march_lit_slab_ring", lambda: P.march_lit_slab_ring(
+                slab_mesh, *margs, step_count=STEPS),
+             lambda: M.march_lit(*margs, step_count=STEPS)),
+            ("march_lit_slab_sharded", lambda: P.march_lit_slab_sharded(
+                slab_mesh, *margs, step_count=STEPS),
+             lambda: M.march_lit(*margs, step_count=STEPS,
+                                 early_termination=2.0))):
+        with torch.no_grad():
+            got, ms = host_ms(torch, fn)
+            want = ref()
+        err = float(((got - want).abs() - 1e-4 * want.abs()).max())
+        checks.append((name, err, 1e-5, ms, torch.equal(got, want)))
+    p = params(WINDOW[0])
+    with torch.no_grad():
+        want = PP.compute_illumination(p, plans, cc, cd, DIMS)
+        zero(("light_scan",))
+        got, ms = host_ms(torch, lambda: P.compute_illumination_sharded(
+            slab_mesh, p, plans, cc, cd, DIMS))
+        v1_launches = counts(("light_scan",))
+        err = float(((got - want).abs() - 1e-5 * want.abs()).max())
+        checks.append(("compute_illumination_sharded", err, 1e-6, ms,
+                       torch.equal(got, want)))
+        got, ms = host_ms(torch, lambda: P.compute_illumination_sharded_v2(
+            slab_mesh, p, plans, cc, cd, DIMS))
+        err = float(((got - want).abs() - 1e-5 * want.abs()).max())
+        checks.append(("compute_illumination_sharded_v2", err, 1e-6, ms,
+                       torch.equal(got, want)))
+    for name, err, limit, ms, equal in checks:
+        print(f"[parallel] (f) {name}, world 1, {DIMS[0]}^3"
+              f"{'' if 'illum' in name else ', %dx%d rays' % TRAIN_RAYS}: "
+              f"max(|d| - rtol |x|) {err:.3e} (limit {limit:.0e}), the same "
+              f"bits: {equal} | {ms:.2f} ms (host clock) | {card}",
+              flush=True)
+        check(err <= limit, f"{name} disagrees with its single-device path")
+    print(f"[parallel] (f) K4 launches of compute_illumination_sharded "
+          f"{v1_launches}", flush=True)
+
+
 T0 = time.perf_counter()
 
 
@@ -2037,6 +2389,15 @@ def main() -> int:
     torch.cuda.synchronize()
     now = time.perf_counter()
     print(f"[time] phase 11 {now - t11:.1f} s | the script up to here "
+          f"{now - T0:.1f} s (host clock) | {card}", flush=True)
+
+    # --- 12. parallel: the sharded paths on a world-1 NCCL group ----------
+    t12 = time.perf_counter()
+    parallel_phase(torch, volume, tf, light_volume, plan, cam, transform,
+                   clip, card, results)
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    print(f"[time] phase 12 {now - t12:.1f} s | the script up to here "
           f"{now - T0:.1f} s (host clock) | {card}", flush=True)
 
     names = [n for n, _, _ in kernel_table()]

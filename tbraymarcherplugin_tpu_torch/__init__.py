@@ -4,7 +4,8 @@ illumination rebuild, the differentiable frame with its backward (fused and
 dense shear-warp composites), the ray marches of a camera inside the volume
 and the inverse-rendering loop, with hand-written kernels for NVIDIA
 Hopper (sm_90a); the volume loaders (MHD, raw, DICOM), the CT presets, the
-render CLI and the browser viewer around them.
+render CLI and the browser viewer around them; and the same paths across
+GPUs on ``torch.distributed`` (``parallel/``).
 
 A port of the JAX package ``tbraymarcherplugin_tpu``, which stays the
 reference. This package imports torch and numpy, never jax. The entry
@@ -63,11 +64,23 @@ Module mapping (port <- JAX package):
 ``tools/micro.py``         ``benchmarks/micro.py`` section (f) (K11,
                            ``csrc/gather_probe.cu``)
 ``tools/profile_frame.py`` (per-op device time on one GPU)
+``tools/parallel_check.py`` (the ``parallel/`` paths across GPUs against
+                           one device)
 ``tools/render_cli.py``    ``tools/render_cli.py`` (PNGs by ``tools/png.py``)
 ``tools/viewer.py``        ``tools/viewer.py``
 ``convert.py``             (JAX state as numpy -> the port's state)
 ``renderer.py``            ``renderer.py`` (the three modes, scene depth,
                            march fallback)
+``parallel/``              ``parallel/`` on ``torch.distributed``:
+                           ``distributed`` (process group: NCCL on the
+                           card, gloo on the CPU), ``mesh``
+                           (``DeviceMesh``, DTensor placements),
+                           ``overlap`` (all-reduce inside the backward,
+                           autograd all-gather), ``ray_sharding`` (ray-tile
+                           DP, train step), ``shearwarp_sharding`` (column
+                           slabs: K1/K5 per slab, K2/K6 on the gathered
+                           image), ``slab_sharding`` (Z slabs: segment
+                           march, ray-state ring, illumination v1, v2)
 =========================  ==============================================
 """
 

@@ -20,8 +20,9 @@ The frame is a shear-warp frame (the dense composite of
 ``shearwarp_stop_early`` path) or a ray march: ``"scan"``, ``"blocked"``
 and ``"tiled2d"`` differentiate through autograd (`ops/march.py`),
 ``"pallas"`` is forward-only through K9 (`ops/fused_march.py`). The
-defaults are the JAX package's. The sharded gradient all-reduce raises
-``NotImplementedError``.
+defaults are the JAX package's. ``grad_allreduce_axis`` (a process group)
+places the data-parallel gradient all-reduce at the parameters' use sites
+(`parallel/overlap.py`).
 """
 
 from __future__ import annotations
@@ -93,14 +94,20 @@ def compute_illumination(params: RenderParams,
                          light_plans: Sequence[LightPlan], clip_center,
                          clip_direction, light_dims, low_cutoff=True,
                          high_cutoff=True,
-                         apply_write_threshold: bool = False):
+                         apply_write_threshold: bool = False,
+                         grad_allreduce_axis=None):
     """The illumination volume of all planned lights, differentiable to
     every leaf of ``params``: per face, the occluder field (K3, backward
     K8) and the propagation scan (K4, backward K7) of ``intensity *
     face weight`` (as the JAX package's differentiable callers build it:
     ``scan_impl="pallas"``, ``tf_impl="pallas_vjp"``), each face's
     contribution gated by the reference's write threshold when
-    ``apply_write_threshold``."""
+    ``apply_write_threshold``. ``grad_allreduce_axis``, a process group,
+    all-reduces the leaves' cotangents here (`parallel.overlap`)."""
+    if grad_allreduce_axis is not None:
+        from ..parallel.overlap import mark_tree
+
+        params = mark_tree(params, grad_allreduce_axis)
     light_dims = tuple(int(d) for d in light_dims)
     win = _windowing_vec4(params, low_cutoff, high_cutoff)
     lv = torch.zeros(light_dims, dtype=torch.float32,
@@ -130,7 +137,7 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
                      shearwarp_dtype=torch.float32,
                      shearwarp_stop_early: bool = False,
                      shearwarp_tf_unit: str = "xla",
-                     grad_allreduce_axis: str | None = None) -> torch.Tensor:
+                     grad_allreduce_axis=None) -> torch.Tensor:
     """Lit render -> (height, width, 4): the illumination rebuild, then the
     frame by ``march_impl``. The defaults are the JAX package's: the
     blocked march, and for shear-warp the dense composite with the "xla"
@@ -158,20 +165,26 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
       through autograd; the illumination's backward runs K7 and K8.
     - ``"pallas"``: the march through K9, forward only: run it under
       ``torch.no_grad()`` (it raises when a leaf would record a gradient).
+
+    ``grad_allreduce_axis``: the process group of a data-parallel mesh axis
+    (``mesh.get_group("rays")``). The leaves' cotangents are all-reduced
+    over it at their use sites: the illumination's at its entry, the
+    march's (blocked, tiled2d) or the composite's (shearwarp) volume, TF
+    and window at theirs (`parallel.overlap`); other march impls raise.
     """
     if march_impl not in MARCH_IMPLS:
         raise ValueError(f"unknown march_impl {march_impl!r}; choose "
                          f"{MARCH_IMPLS}")
-    if grad_allreduce_axis is not None:
-        raise NotImplementedError(
-            "not ported yet: grad_allreduce_axis (the sharded gradient "
-            "all-reduce). It comes with a later slice of the port "
-            "(ROADMAP.md, 'Modules to port').")
+    if grad_allreduce_axis is not None and march_impl not in (
+            "blocked", "tiled2d", "shearwarp"):
+        raise ValueError(f"grad_allreduce_axis unsupported for "
+                         f"march_impl={march_impl!r}")
     if march_impl != "shearwarp":
         win = _windowing_vec4(params, low_cutoff, high_cutoff)
         lv = compute_illumination(params, light_plans, clip_center,
                                   clip_direction, light_dims, low_cutoff,
-                                  high_cutoff)
+                                  high_cutoff,
+                                  grad_allreduce_axis=grad_allreduce_axis)
         args = (params.volume, params.tf_table, lv, rays, win, clip_center,
                 clip_direction)
         kw = dict(step_count=step_count, early_termination=early_termination)
@@ -179,7 +192,8 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
             return FM.march_lit_fused(*args, **kw)
         if march_impl == "scan":
             return M.march_lit(*args, checkpoint_every=checkpoint_every, **kw)
-        kw["block_size"] = checkpoint_every
+        kw.update(block_size=checkpoint_every,
+                  grad_allreduce_axis=grad_allreduce_axis)
         if march_impl == "tiled2d":
             return M.march_lit_tiled(
                 *args, tile2d=(32, 32) if rays.thickness.dim() == 2 else None,
@@ -194,25 +208,31 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
         raise ValueError("march_impl='shearwarp' needs shearwarp_plan "
                          "(ops.shearwarp.plan_shearwarp)")
     h, w = rays.thickness.shape
-    if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
+
+    def inputs():
+        """The composite's volume, TF, light volume and window, the first
+        three marked for the all-reduce when one is asked for."""
         win = _windowing_vec4(params, low_cutoff, high_cutoff)
         lv = compute_illumination(params, light_plans, clip_center,
                                   clip_direction, light_dims, low_cutoff,
-                                  high_cutoff)
+                                  high_cutoff,
+                                  grad_allreduce_axis=grad_allreduce_axis)
+        vol, tf, win = M._mark(grad_allreduce_axis, params.volume,
+                               params.tf_table, win)
+        return vol, tf, lv, win
+
+    if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
+        vol, tf, lv, win = inputs()
         inter = SW.shearwarp_intermediate(
-            params.volume, params.tf_table, lv, shearwarp_plan, win,
-            clip_center, clip_direction, early_termination=early_termination,
+            vol, tf, lv, shearwarp_plan, win, clip_center, clip_direction,
+            early_termination=early_termination,
             compute_dtype=shearwarp_dtype, tf_unit=shearwarp_tf_unit)
         return SW.warp_to_screen(inter, shearwarp_plan, w, h)
     composite = (shearwarp_intermediate_fused if shearwarp_stop_early
                  else shearwarp_intermediate_fused_diff)
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not shearwarp_stop_early):
-        win = _windowing_vec4(params, low_cutoff, high_cutoff)
-        lv = compute_illumination(params, light_plans, clip_center,
-                                  clip_direction, light_dims, low_cutoff,
-                                  high_cutoff)
-        inter = composite(params.volume, params.tf_table, lv, shearwarp_plan,
-                          win, clip_center, clip_direction, early_termination,
-                          shearwarp_dtype)
+        vol, tf, lv, win = inputs()
+        inter = composite(vol, tf, lv, shearwarp_plan, win, clip_center,
+                          clip_direction, early_termination, shearwarp_dtype)
         return warp_to_screen_fused(inter, shearwarp_plan, w, h)

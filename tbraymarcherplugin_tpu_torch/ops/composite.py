@@ -24,7 +24,8 @@ from . import _kernels
 from .compositing import EARLY_TERMINATION_ALPHA
 from .sampling import VOLUME_DENSITY
 from .shearwarp import (ShearWarpPlan, _pad_to, _resample_block, _t,
-                        _volume_planes, plane_dtype)
+                        _volume_planes, columns, plane_dtype,
+                        rebased_columns)
 from .transfer import windowed_tf_range_occupied
 
 KB = 16  # planes per occupancy chunk
@@ -142,8 +143,10 @@ def _plane_param_array(plan: ShearWarpPlan, Kp: int,
     appends one affinely extrapolated plane for the jitter path's k + 1
     reads at the last plane."""
     n = Kp + (1 if extend else 0)
+    # a column slab's kernels count local columns: a2 re-based to them
+    a2 = rebased_columns(plan)[0] if plan.j0 else plan.a2
     rows = []
-    for x, pv in ((plan.a1, -1e9), (plan.b1, 0.0), (plan.a2, -1e9),
+    for x, pv in ((plan.a1, -1e9), (plan.b1, 0.0), (a2, -1e9),
                   (plan.b2, 0.0), (plan.lam, 0.0)):
         x = np.asarray(x, np.float32)
         if extend:
@@ -165,7 +168,7 @@ def _clip_step_fields(plan: ShearWarpPlan, clip_center, clip_direction,
     cam = np.asarray(plan.cam, np.float32)
     c1, c2, cd_ = float(cam[a1x]), float(cam[a2x]), float(cam[dx])
     ii = torch.arange(plan.n1, dtype=f32, device=device)
-    jj = torch.arange(plan.n2, dtype=f32, device=device)
+    jj = columns(plan, device)
     g1 = float(plan.o1) + (ii + 0.5) * float(plan.d1)
     g2 = float(plan.o2) + (jj + 0.5) * float(plan.d2)
     dz = float(np.float32(plan.z0) - np.float32(cd_))
@@ -391,7 +394,7 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     vplanes = _volume_planes(volume.permute(ax), plan, nearest=sample_nearest)
     W = _resample_block(_pad_to(vplanes, Kbuf), coeff("a1"), coeff("b1"),
                         coeff("a2"), coeff("b2"), n1, n2, compute_dtype,
-                        nearest=sample_nearest)
+                        nearest=sample_nearest, j0=plan.j0)
     L = None
     if mode == "lit":
         light_t = light_volume.permute(ax)
@@ -402,7 +405,7 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
         lplanes = l0 * (1.0 - lmt) + l1 * lmt
         L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"),
                             coeff("lb1"), coeff("la2"), coeff("lb2"), n1, n2,
-                            compute_dtype)
+                            compute_dtype, j0=plan.j0)
 
     win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=dev)
     if mode == "intensity":

@@ -217,12 +217,20 @@ def _propagate_one_face(volume, tf_table, windowing_vec4, clip_center,
     axis, flip so the scan walks slice 0 -> N-1, scan (kernels K4/K7),
     threshold, and undo the flip and transpose. ``light_alpha`` is a
     number or a 0-d tensor."""
-    ax = transposed_axes(face)
-    tdims = (light_dims[ax[0]], light_dims[ax[1]], light_dims[ax[2]])
     opacity = occluder_opacity_volume(
         volume, tf_table, windowing_vec4, light_dims, uvw_off, step_size,
         clip_center, clip_direction,
     )
+    return scan_one_face(opacity, uv_off, light_alpha, face, light_dims,
+                         apply_write_threshold)
+
+
+def scan_one_face(opacity, uv_off, light_alpha, face: int, light_dims,
+                  apply_write_threshold: bool = True):
+    """The transmitted light of one face from its ``light_dims`` occluder
+    field: the second half of :func:`_propagate_one_face`."""
+    ax = transposed_axes(face)
+    tdims = (light_dims[ax[0]], light_dims[ax[1]], light_dims[ax[2]])
     opacity_t = opacity.permute(ax)
     if face_direction(face) == -1:
         opacity_t = opacity_t.flip(2)

@@ -105,6 +105,18 @@ def _run(fn, grad: bool, *args):
     return fn(*args)
 
 
+def _mark(group, *tensors):
+    """``tensors`` through `parallel.overlap.psum_cotangent` over the
+    process group ``group`` (as they are for None): the march's
+    cotangents all-reduce at its entry, before the illumination's
+    backward runs."""
+    if group is None:
+        return tensors
+    from ..parallel.overlap import psum_cotangent
+
+    return tuple(psum_cotangent(t, group) for t in tensors)
+
+
 def _loop_bound(n_full: torch.Tensor, step_count: int) -> int:
     """Steps the loop must run: the longest ray's, capped at the static
     bound (a host read of max(n_full))."""
@@ -208,7 +220,7 @@ def march_lit_blocked(volume, tf_table, light_volume, rays: RayBatch,
                       early_termination: float = EARLY_TERMINATION_ALPHA,
                       block_size: int = 32, compat_final_step: bool = True,
                       occ_grid=None, occ_scale=None, skip_blocks: bool = False,
-                      grad_allreduce_axis: str | None = None) -> torch.Tensor:
+                      grad_allreduce_axis=None) -> torch.Tensor:
     """The lit march of :func:`march_lit` in blocks of ``block_size`` steps
     -> (..., 4) RGBA.
 
@@ -226,12 +238,8 @@ def march_lit_blocked(volume, tf_table, light_volume, rays: RayBatch,
     JAX package, a skipped block gives exact zeros for the TF and window
     cotangents of those samples, so skip only for inference.
     """
-    if grad_allreduce_axis is not None:
-        raise NotImplementedError(
-            "not ported yet: grad_allreduce_axis (the sharded gradient "
-            "all-reduce). It comes with a later slice of the port "
-            "(ROADMAP.md, 'Modules to port').")
     win = _as_device(windowing_vec4, volume)
+    volume, tf_table, win = _mark(grad_allreduce_axis, volume, tf_table, win)
     cc, cd = _as_device(clip_center, volume), _as_device(clip_direction,
                                                          volume)
     st = _march_state(rays, step_count, jitter)
@@ -306,7 +314,7 @@ def march_lit_tiled(volume, tf_table, light_volume, rays: RayBatch,
                     compat_final_step: bool = True, occ_grid=None,
                     occ_scale=None, skip_blocks: bool = False,
                     tile2d: tuple | None = None,
-                    grad_allreduce_axis: str | None = None) -> torch.Tensor:
+                    grad_allreduce_axis=None) -> torch.Tensor:
     """:func:`march_lit_blocked` over groups of at most ``tile_size`` rays:
     memory is O(tile_size * block_size) at any image size, and each ray's
     result equals the blocked march's.
@@ -317,11 +325,10 @@ def march_lit_tiled(volume, tf_table, light_volume, rays: RayBatch,
     skipped only when every ray of the group may skip it). The rectangles
     of a group run as one batch.
     """
-    if grad_allreduce_axis is not None:
-        raise NotImplementedError(
-            "not ported yet: grad_allreduce_axis (the sharded gradient "
-            "all-reduce). It comes with a later slice of the port "
-            "(ROADMAP.md, 'Modules to port').")
+    # marked once here, not per group: the cotangent is the sum over groups
+    windowing_vec4 = _as_device(windowing_vec4, volume)
+    volume, tf_table, windowing_vec4 = _mark(grad_allreduce_axis, volume,
+                                             tf_table, windowing_vec4)
     ray_shape = rays.thickness.shape
     entry, direction, thickness = rays
     jit = None if jitter is None else _as_device(jitter, entry)

@@ -35,6 +35,11 @@ class ShearWarpPlan:
 
     Per-plane arrays are ordered front to back; scalars are float32.
     ``msrc_hi``/``mfrac`` are None when planes sit on voxel centers.
+    ``j0`` > 0 makes the plan a column slab of a wider grid: its columns
+    are the grid's j0 .. j0 + n2 - 1, and every column coordinate
+    (``a2 + b2 * j``, ``la2 + lb2 * j``, ``o2 + (j + 0.5) * d2``) is
+    evaluated at the grid's own index j, so a slab's samples are the full
+    grid's bit for bit (`parallel/shearwarp_sharding.py`).
     """
 
     axis: int
@@ -67,6 +72,23 @@ class ShearWarpPlan:
     p1row: np.ndarray  # (3,) homography rows: x = (Pr @ (u, v, 1)) / (Pd @ ...)
     p2row: np.ndarray
     pdrow: np.ndarray
+    j0: int = 0  # the first column of a column slab (see above)
+
+
+def rebased_columns(plan: ShearWarpPlan):
+    """(a2, la2, o2) re-based to the slab's local column 0, float32 as the
+    JAX package's `parallel.shearwarp_sharding._local_plan` rounds them:
+    the form a kernel that counts local columns reads (K1's and K5's
+    in-cube test, an ulp from the full grid's at the cube's faces)."""
+    off = np.float32(plan.j0)
+    return (plan.a2 + plan.b2 * off, plan.la2 + plan.lb2 * off,
+            plan.o2 + off * plan.d2)
+
+
+def columns(plan: ShearWarpPlan, device=None) -> torch.Tensor:
+    """(n2,) float32 indices of the plan's columns in its grid."""
+    return torch.arange(plan.j0, plan.j0 + plan.n2, dtype=torch.float32,
+                        device=device)
 
 
 def _camera_affine_dirs(camera, width: int, height: int) -> np.ndarray:
@@ -273,12 +295,12 @@ def _volume_planes(vol_t: torch.Tensor, plan: ShearWarpPlan,
 
 
 def _resample_matrices(a, b, dim: int, n: int, dtype,
-                       nearest: bool = False) -> torch.Tensor:
+                       nearest: bool = False, i0: int = 0) -> torch.Tensor:
     """Banded linear-interpolation matrices S (B, dim, n):
-    S[p, m, i] = hat(clip(a[p] + b[p] * i, 0, dim - 1) - m); with
+    S[p, m, i] = hat(clip(a[p] + b[p] * (i0 + i), 0, dim - 1) - m); with
     ``nearest`` a one-hot selection of floor(clip(...) + 0.5) (the octree
     mode's nearest texel)."""
-    i = torch.arange(n, dtype=torch.float32, device=a.device)
+    i = torch.arange(i0, i0 + n, dtype=torch.float32, device=a.device)
     v = a[:, None] + b[:, None] * i[None, :]
     vc = v.clamp(0.0, float(dim - 1))
     m = torch.arange(dim, dtype=torch.float32, device=a.device)
@@ -301,16 +323,18 @@ def plane_dtype(compute_dtype, device) -> torch.dtype:
 
 def _resample_block(slices, a1, b1, a2, b2, n1: int, n2: int,
                     dtype=torch.float32, f32_out: bool = False,
-                    nearest: bool = False) -> torch.Tensor:
+                    nearest: bool = False, j0: int = 0) -> torch.Tensor:
     """(B, D1, D2) slices -> (B, n1, n2) sheared samples by two batched
     banded matmuls (exactly separable bilinear, or with ``nearest`` a
-    one-hot selection of the nearest texel), stored as ``dtype``.
+    one-hot selection of the nearest texel), stored as ``dtype``; the
+    columns are j0 .. j0 + n2 - 1 (a column slab, `ShearWarpPlan.j0`).
 
     ``f32_out``: the operands are rounded to ``dtype`` but the products are
     float32, as the JAX package's ``preferred_element_type=float32`` einsums
     (the dense composite's samples); the fused path stores ``dtype``."""
     S1 = _resample_matrices(a1, b1, slices.shape[1], n1, dtype, nearest)
-    S2 = _resample_matrices(a2, b2, slices.shape[2], n2, dtype, nearest)
+    S2 = _resample_matrices(a2, b2, slices.shape[2], n2, dtype, nearest,
+                            j0)
     if not f32_out:
         t = torch.bmm(S1.transpose(1, 2), slices.to(dtype))
         return torch.bmm(t, S2)
@@ -393,7 +417,7 @@ def shearwarp_intermediate(volume, tf_table, light_volume, plan: ShearWarpPlan,
     lm0_hi = (lm0 + 1).clamp(max=light_t.shape[0] - 1)
     plane_valid = torch.arange(Kp, device=dev) < K
     ii = torch.arange(n1, dtype=torch.float32, device=dev)
-    jj = torch.arange(n2, dtype=torch.float32, device=dev)
+    jj = columns(plan, dev)
     step_world, e0, e1 = _clip_step_fields(plan, clip_center, clip_direction,
                                            dev)
     D1 = volume.shape[plan.axes12[0]]
@@ -406,11 +430,11 @@ def shearwarp_intermediate(volume, tf_table, light_volume, plan: ShearWarpPlan,
         a1b, b1b, a2b, b2b, la1b, lb1b, la2b, lb2b, lmtb, lamb = (
             x[sl] for x in coeff)
         vals = _resample_block(vplanes_all[sl], a1b, b1b, a2b, b2b, n1, n2,
-                               compute_dtype, f32_out=True)
+                               compute_dtype, f32_out=True, j0=plan.j0)
         t = lmtb[:, None, None]
         lblk = light_t[lm0[sl]] * (1.0 - t) + light_t[lm0_hi[sl]] * t
         light = _resample_block(lblk, la1b, lb1b, la2b, lb2b, n1, n2,
-                                compute_dtype, f32_out=True)
+                                compute_dtype, f32_out=True, j0=plan.j0)
         v1 = a1b[:, None] + b1b[:, None] * ii[None, :]  # (B, n1)
         v2 = a2b[:, None] + b2b[:, None] * jj[None, :]  # (B, n2)
         in1 = (v1 >= -0.5) & (v1 <= D1 - 0.5)
@@ -602,7 +626,7 @@ def depth_to_lambda_max(plan: ShearWarpPlan, scene_depth, width: int,
     f32 = torch.float32
     depth = torch.as_tensor(scene_depth, dtype=f32, device=device)
     ii = torch.arange(plan.n1, dtype=f32, device=device)
-    jj = torch.arange(plan.n2, dtype=f32, device=device)
+    jj = columns(plan, device)
     g1 = float(plan.o1) + (ii + 0.5) * float(plan.d1)  # (n1,)
     g2 = float(plan.o2) + (jj + 0.5) * float(plan.d2)  # (n2,)
     p1r, p2r, pdr = (np.asarray(r, np.float32).tolist() for r in

@@ -269,9 +269,12 @@ class _FusedComposite(torch.autograd.Function):
     def backward(ctx, g):
         W, L, tf_table, win, e1, step_world = ctx.saved_tensors
         geo = ctx.geo
+        # one layout of g on both routes: the plain version's sums then run
+        # in the same order whatever layout the caller's cotangent has
         dW, dL, dtf, dwin = composite_bwd(
-            W, L, tf_table, geo["pa"], e1, step_world, win, g, geo["e0"],
-            geo["early_termination"], geo["d1"], geo["d2"], geo["k_real"])
+            W, L, tf_table, geo["pa"], e1, step_world, win, g.contiguous(),
+            geo["e0"], geo["early_termination"], geo["d1"], geo["d2"],
+            geo["k_real"])
         return dW, dL, dtf.to(tf_table.dtype), dwin, None
 
 

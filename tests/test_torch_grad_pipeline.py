@@ -113,12 +113,16 @@ def test_stop_early_matches_jax_fused_forward():
 
 @pytest.mark.parametrize("kw", [dict(grad_allreduce_axis="data")])
 def test_unported_branches_raise(kw):
+    """The sharded gradient all-reduce is ported (`parallel/`); what still
+    raises is the branch the JAX package rejects too: the all-reduce on a
+    march it cannot mark (``march_impl="scan"``)."""
     jparams = _jax_scene()[0]
     params, rays, plan, plans = _port_scene(jparams, requires_grad=False)
     clip = PS.ClipPlane.disabled()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="grad_allreduce_axis unsupported"):
         PP.render_lit_scene(params, rays, clip.center, clip.direction, plans,
-                            DIMS, shearwarp_plan=plan, **kw)
+                            DIMS, shearwarp_plan=plan, march_impl="scan",
+                            **kw)
 
 
 def test_defaults_match_jax(rng):

@@ -137,3 +137,52 @@ def test_port_renders_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+PARALLEL_SCRIPT = r"""
+import sys, tempfile, os
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import torch
+import torch.distributed as dist
+from tbraymarcherplugin_tpu_torch import parallel
+from tbraymarcherplugin_tpu_torch.models import pipeline as PP
+from tbraymarcherplugin_tpu_torch.ops import rays, synthetic, transfer
+from tbraymarcherplugin_tpu_torch.parallel import distributed
+from tbraymarcherplugin_tpu_torch.scene import Camera, ClipPlane, VolumeTransform
+
+assert len(parallel.__all__) == 13
+with tempfile.TemporaryDirectory() as d:
+    distributed.initialize_multihost("file://" + os.path.join(d, "store"),
+                                     1, 0, device="cpu")
+    mesh = parallel.make_mesh({"rays": 1})
+    dims = (12, 12, 12)
+    params = PP.RenderParams(
+        torch.from_numpy(synthetic.ct_like_phantom(dims)),
+        transfer.tf_ct_bone(), torch.tensor(0.5), torch.tensor(0.8),
+        torch.tensor([1.0]))
+    cam = Camera.look_at([0.1, -2.3, 0.4], 0.0, fov_degrees=40.0)
+    clip = ClipPlane.disabled()
+    img = parallel.render_lit_sharded(
+        mesh, params, rays.setup_rays(cam, VolumeTransform.create(), 12, 8),
+        clip.center, clip.direction,
+        (PP.LightPlan.create([0.3, 0.1, -0.95], dims),), dims, step_count=12)
+    assert img.shape == (8, 12, 4) and bool(img.isfinite().all())
+    assert float(img[..., 3].max()) > 0.0
+    dist.destroy_process_group()
+assert not any(m == "jax" or m.startswith(("jax.", "tbraymarcherplugin_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_port_parallel_runs_without_jax():
+    """`parallel` imports, and a world-1 gloo `render_lit_sharded` renders,
+    with JAX unavailable."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -57,6 +57,9 @@ def _plans(case, vol_dims=DIMS, light_dims=DIMS, width=W, height=H, **kw):
 
 def _assert_plans_equal(jp, pp):
     for f in dataclasses.fields(pp):
+        if f.name == "j0":  # a column slab's offset; a JAX plan is whole
+            assert pp.j0 == 0
+            continue
         a, b = getattr(pp, f.name), getattr(jp, f.name)
         if b is None:
             assert a is None, f.name
