@@ -24,9 +24,14 @@ Module mapping (port <- JAX package):
                            metadata, normalization)
 ``utils/native.py``        ``utils/native.py`` (builds ``native/tbrnative.cpp``
                            into ``_build/``; numpy without it)
-``utils/profiling.py``     ``utils/profiling.py`` (``device_trace`` on
-                           ``torch.profiler``)
-``utils/device.py``        (the entry points' default device)
+``utils/profiling.py``     ``utils/profiling.py`` (``PhaseTracer``,
+                           ``device_trace`` on ``torch.profiler``; here
+                           also ``span``, the ``tbr.*`` ranges at the
+                           layer boundaries, recorded only while a
+                           profiler records)
+``utils/device.py``        (the entry points' default device;
+                           ``to_device``, the host-to-device copies of a
+                           frame, in ``tbr.upload`` spans)
 ``io/``                    ``io/`` (loaders, ``minidicom``, assets)
 ``scene.py``               ``scene.py``
 ``ops/compositing.py``     ``ops/compositing.py``

@@ -41,6 +41,7 @@ from ..ops.composite import shearwarp_intermediate_fused
 from ..ops.compositing import EARLY_TERMINATION_ALPHA
 from ..ops.shearwarp_grad import shearwarp_intermediate_fused_diff
 from ..ops.warp import warp_to_screen_fused
+from ..utils.profiling import SCENE, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,67 +173,71 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
     march's (blocked, tiled2d) or the composite's (shearwarp) volume, TF
     and window at theirs (`parallel.overlap`); other march impls raise.
     """
-    if march_impl not in MARCH_IMPLS:
-        raise ValueError(f"unknown march_impl {march_impl!r}; choose "
-                         f"{MARCH_IMPLS}")
-    if grad_allreduce_axis is not None and march_impl not in (
-            "blocked", "tiled2d", "shearwarp"):
-        raise ValueError(f"grad_allreduce_axis unsupported for "
-                         f"march_impl={march_impl!r}")
-    if march_impl != "shearwarp":
-        win = _windowing_vec4(params, low_cutoff, high_cutoff)
-        lv = compute_illumination(params, light_plans, clip_center,
-                                  clip_direction, light_dims, low_cutoff,
-                                  high_cutoff,
-                                  grad_allreduce_axis=grad_allreduce_axis)
-        args = (params.volume, params.tf_table, lv, rays, win, clip_center,
-                clip_direction)
-        kw = dict(step_count=step_count, early_termination=early_termination)
-        if march_impl == "pallas":
-            return FM.march_lit_fused(*args, **kw)
-        if march_impl == "scan":
-            return M.march_lit(*args, checkpoint_every=checkpoint_every, **kw)
-        kw.update(block_size=checkpoint_every,
-                  grad_allreduce_axis=grad_allreduce_axis)
-        if march_impl == "tiled2d":
-            return M.march_lit_tiled(
-                *args, tile2d=(32, 32) if rays.thickness.dim() == 2 else None,
-                **kw)
-        if rays.thickness.numel() > M.DEFAULT_TILE_SIZE:
-            return M.march_lit_tiled(*args, **kw)
-        return M.march_lit_blocked(*args, **kw)
-    if shearwarp_tf_unit not in ("fused", "xla", "pallas"):
-        raise ValueError(f"unknown shearwarp_tf_unit {shearwarp_tf_unit!r}; "
-                         f"choose 'fused', 'xla' or 'pallas'")
-    if shearwarp_plan is None:
-        raise ValueError("march_impl='shearwarp' needs shearwarp_plan "
-                         "(ops.shearwarp.plan_shearwarp)")
-    h, w = rays.thickness.shape
+    with span(SCENE):
+        if march_impl not in MARCH_IMPLS:
+            raise ValueError(f"unknown march_impl {march_impl!r}; choose "
+                             f"{MARCH_IMPLS}")
+        if grad_allreduce_axis is not None and march_impl not in (
+                "blocked", "tiled2d", "shearwarp"):
+            raise ValueError(f"grad_allreduce_axis unsupported for "
+                             f"march_impl={march_impl!r}")
+        if march_impl != "shearwarp":
+            win = _windowing_vec4(params, low_cutoff, high_cutoff)
+            lv = compute_illumination(params, light_plans, clip_center,
+                                      clip_direction, light_dims, low_cutoff,
+                                      high_cutoff,
+                                      grad_allreduce_axis=grad_allreduce_axis)
+            args = (params.volume, params.tf_table, lv, rays, win, clip_center,
+                    clip_direction)
+            kw = dict(step_count=step_count,
+                      early_termination=early_termination)
+            if march_impl == "pallas":
+                return FM.march_lit_fused(*args, **kw)
+            if march_impl == "scan":
+                return M.march_lit(*args, checkpoint_every=checkpoint_every,
+                                   **kw)
+            kw.update(block_size=checkpoint_every,
+                      grad_allreduce_axis=grad_allreduce_axis)
+            if march_impl == "tiled2d":
+                tile2d = (32, 32) if rays.thickness.dim() == 2 else None
+                return M.march_lit_tiled(*args, tile2d=tile2d, **kw)
+            if rays.thickness.numel() > M.DEFAULT_TILE_SIZE:
+                return M.march_lit_tiled(*args, **kw)
+            return M.march_lit_blocked(*args, **kw)
+        if shearwarp_tf_unit not in ("fused", "xla", "pallas"):
+            raise ValueError(f"unknown shearwarp_tf_unit "
+                             f"{shearwarp_tf_unit!r}; choose 'fused', 'xla' "
+                             f"or 'pallas'")
+        if shearwarp_plan is None:
+            raise ValueError("march_impl='shearwarp' needs shearwarp_plan "
+                             "(ops.shearwarp.plan_shearwarp)")
+        h, w = rays.thickness.shape
 
-    def inputs():
-        """The composite's volume, TF, light volume and window, the first
-        three marked for the all-reduce when one is asked for."""
-        win = _windowing_vec4(params, low_cutoff, high_cutoff)
-        lv = compute_illumination(params, light_plans, clip_center,
-                                  clip_direction, light_dims, low_cutoff,
-                                  high_cutoff,
-                                  grad_allreduce_axis=grad_allreduce_axis)
-        vol, tf, win = M._mark(grad_allreduce_axis, params.volume,
-                               params.tf_table, win)
-        return vol, tf, lv, win
+        def inputs():
+            """The composite's volume, TF, light volume and window, the first
+            three marked for the all-reduce when one is asked for."""
+            win = _windowing_vec4(params, low_cutoff, high_cutoff)
+            lv = compute_illumination(params, light_plans, clip_center,
+                                      clip_direction, light_dims, low_cutoff,
+                                      high_cutoff,
+                                      grad_allreduce_axis=grad_allreduce_axis)
+            vol, tf, win = M._mark(grad_allreduce_axis, params.volume,
+                                   params.tf_table, win)
+            return vol, tf, lv, win
 
-    if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
-        vol, tf, lv, win = inputs()
-        inter = SW.shearwarp_intermediate(
-            vol, tf, lv, shearwarp_plan, win, clip_center, clip_direction,
-            early_termination=early_termination,
-            compute_dtype=shearwarp_dtype, tf_unit=shearwarp_tf_unit)
-        return SW.warp_to_screen(inter, shearwarp_plan, w, h)
-    composite = (shearwarp_intermediate_fused if shearwarp_stop_early
-                 else shearwarp_intermediate_fused_diff)
-    with torch.set_grad_enabled(torch.is_grad_enabled()
-                                and not shearwarp_stop_early):
-        vol, tf, lv, win = inputs()
-        inter = composite(vol, tf, lv, shearwarp_plan, win, clip_center,
-                          clip_direction, early_termination, shearwarp_dtype)
-        return warp_to_screen_fused(inter, shearwarp_plan, w, h)
+        if not shearwarp_stop_early and shearwarp_tf_unit != "fused":
+            vol, tf, lv, win = inputs()
+            inter = SW.shearwarp_intermediate(
+                vol, tf, lv, shearwarp_plan, win, clip_center, clip_direction,
+                early_termination=early_termination,
+                compute_dtype=shearwarp_dtype, tf_unit=shearwarp_tf_unit)
+            return SW.warp_to_screen(inter, shearwarp_plan, w, h)
+        composite = (shearwarp_intermediate_fused if shearwarp_stop_early
+                     else shearwarp_intermediate_fused_diff)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not shearwarp_stop_early):
+            vol, tf, lv, win = inputs()
+            inter = composite(vol, tf, lv, shearwarp_plan, win, clip_center,
+                              clip_direction, early_termination,
+                              shearwarp_dtype)
+            return warp_to_screen_fused(inter, shearwarp_plan, w, h)

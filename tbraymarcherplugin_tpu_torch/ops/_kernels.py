@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.device import to_device
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -232,7 +234,7 @@ def sum_partials(partials: torch.Tensor) -> torch.Tensor:
 def window_tensor(windowing_vec4, device) -> torch.Tensor:
     """(4,) float32 window (center, width, low cutoff, high cutoff) on
     ``device``; a tensor already there is used as it is (gradients flow)."""
-    win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=device)
+    win = to_device(windowing_vec4, device, torch.float32)
     if win.shape != (4,):
         raise ValueError(f"window must hold 4 values, got {tuple(win.shape)}")
     return win

@@ -20,6 +20,8 @@ import collections
 import numpy as np
 import torch
 
+from ..utils.device import to_device
+from ..utils.profiling import COMPOSITE, PRESHEAR, TILE_BOUNDS, span
 from . import _kernels
 from .compositing import EARLY_TERMINATION_ALPHA
 from .sampling import VOLUME_DENSITY
@@ -118,8 +120,9 @@ def tile_bounds_tensor(pa, n1: int, n2: int, d1: int, d2: int, k_real: int,
     key = (pa.tobytes(), pa.shape, n1, n2, d1, d2, k_real, jitter, str(device))
     t = _BOUNDS_CACHE.get(key)
     if t is None:
-        t = torch.from_numpy(tile_plane_bounds(
-            pa, n1, n2, d1, d2, k_real, TILE, jitter)).to(device)
+        with span(TILE_BOUNDS):
+            t = to_device(tile_plane_bounds(
+                pa, n1, n2, d1, d2, k_real, TILE, jitter), device)
         _BOUNDS_CACHE[key] = t
         while len(_BOUNDS_CACHE) > 8:
             _BOUNDS_CACHE.popitem(last=False)
@@ -289,9 +292,10 @@ def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
     launch in ``composite.launches`` and, under :func:`variant`'s name, in
     ``composite.variant_launches``."""
     if W.device.type == "cpu":
-        return composite_plain(W, L, tf_table, pa, occ, e1, step_world,
-                               jitter, win, e0, early_termination, d1, d2,
-                               k_real, depth_lam, mode)
+        with span(COMPOSITE):
+            return composite_plain(W, L, tf_table, pa, occ, e1, step_world,
+                                   jitter, win, e0, early_termination, d1,
+                                   d2, k_real, depth_lam, mode)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
     dev = W.device
@@ -305,7 +309,7 @@ def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
                          "None otherwise")
     n1, n2 = e1.shape
     pa_host = np.asarray(pa, np.float32)
-    pa = torch.as_tensor(pa_host, device=dev).contiguous()
+    pa = to_device(pa_host, dev).contiguous()
     P = pa.shape[1]
     need = k_real + (1 if jitter is not None else 0)
     if W.shape[0] < need or (lit and L.shape[0] < need) or P < need:
@@ -338,13 +342,15 @@ def composite(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _kernels.launch(
-        name, W.data_ptr(), ptr(L), tf_table.data_ptr(), pa.data_ptr(),
-        occ.data_ptr(), bounds.data_ptr(), e1.data_ptr(),
-        step_world.data_ptr(), ptr(jitter), ptr(depth_lam), win.data_ptr(),
-        out.data_ptr(), n1, n2, k_real, P, occ.numel(), MODES.index(mode),
-        e0, early_termination, float(d1), float(d2), _kernels.stream_of(W),
-    )
+    with span(COMPOSITE):
+        _kernels.launch(
+            name, W.data_ptr(), ptr(L), tf_table.data_ptr(), pa.data_ptr(),
+            occ.data_ptr(), bounds.data_ptr(), e1.data_ptr(),
+            step_world.data_ptr(), ptr(jitter), ptr(depth_lam),
+            win.data_ptr(), out.data_ptr(), n1, n2, k_real, P, occ.numel(),
+            MODES.index(mode), e0, early_termination, float(d1), float(d2),
+            _kernels.stream_of(W),
+        )
     composite.launches += 1
     composite.variant_launches[variant(mode, depth_lam)] += 1
     return out
@@ -391,29 +397,31 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     def coeff(name):
         return _pad_to(_t(getattr(plan, name), dev), Kbuf)
 
-    vplanes = _volume_planes(volume.permute(ax), plan, nearest=sample_nearest)
-    W = _resample_block(_pad_to(vplanes, Kbuf), coeff("a1"), coeff("b1"),
-                        coeff("a2"), coeff("b2"), n1, n2, compute_dtype,
-                        nearest=sample_nearest, j0=plan.j0)
-    L = None
-    if mode == "lit":
-        light_t = light_volume.permute(ax)
-        lm0 = _t(plan.lm0, dev)
-        l0 = light_t[lm0]
-        l1 = light_t[(lm0 + 1).clamp(max=light_t.shape[0] - 1)]
-        lmt = _t(plan.lmt, dev)[:, None, None]
-        lplanes = l0 * (1.0 - lmt) + l1 * lmt
-        L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"),
-                            coeff("lb1"), coeff("la2"), coeff("lb2"), n1, n2,
-                            compute_dtype, j0=plan.j0)
+    with span(PRESHEAR):
+        vplanes = _volume_planes(volume.permute(ax), plan,
+                                 nearest=sample_nearest)
+        W = _resample_block(_pad_to(vplanes, Kbuf), coeff("a1"), coeff("b1"),
+                            coeff("a2"), coeff("b2"), n1, n2, compute_dtype,
+                            nearest=sample_nearest, j0=plan.j0)
+        L = None
+        if mode == "lit":
+            light_t = light_volume.permute(ax)
+            lm0 = _t(plan.lm0, dev)
+            l0 = light_t[lm0]
+            l1 = light_t[(lm0 + 1).clamp(max=light_t.shape[0] - 1)]
+            lmt = _t(plan.lmt, dev)[:, None, None]
+            lplanes = l0 * (1.0 - lmt) + l1 * lmt
+            L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"),
+                                coeff("lb1"), coeff("la2"), coeff("lb2"), n1,
+                                n2, compute_dtype, j0=plan.j0)
 
-    win = torch.as_tensor(windowing_vec4, dtype=torch.float32, device=dev)
+    win = to_device(windowing_vec4, dev, torch.float32)
     if mode == "intensity":
         occ = torch.ones(nch, dtype=torch.bool, device=dev)
     else:
         # Chunk occupancy: can any value in a chunk's range give alpha > 0?
         # (plan data: computed on detached values, it takes no gradient)
-        inf = torch.tensor([float("inf")], device=dev)
+        inf = to_device([float("inf")], dev)
         vp = vplanes.detach()
         sl_mn = torch.cat([vp.amin((1, 2)), inf.expand(Kp - K)])
         sl_mx = torch.cat([vp.amax((1, 2)), -inf.expand(Kp - K)])
@@ -441,8 +449,8 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     # a lit frame without a λ ceiling keeps composite's defaults, so that
     # its arguments are also those of the backward (shearwarp_grad)
     if depth_lam is not None:
-        ops["depth_lam"] = torch.as_tensor(
-            depth_lam, dtype=torch.float32, device=dev).contiguous()
+        ops["depth_lam"] = to_device(depth_lam, dev,
+                                     torch.float32).contiguous()
     if mode != "lit":
         ops["mode"] = mode
     return ops

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import to_device
+from ..utils.profiling import MARCH, span
 from . import _kernels
 from .compositing import EARLY_TERMINATION_ALPHA
 from .march import _loop_bound, _march_state
@@ -46,10 +48,8 @@ def _march_inputs(volume, rays: RayBatch, windowing_vec4, clip_center,
                       st.step_vec[..., 2], st.n_full, st.final_frac])
     params = torch.cat([
         _kernels.window_tensor(windowing_vec4, dev),
-        torch.as_tensor(clip_center, dtype=torch.float32, device=dev)
-        .reshape(3),
-        torch.as_tensor(clip_direction, dtype=torch.float32, device=dev)
-        .reshape(3),
+        to_device(clip_center, dev, torch.float32).reshape(3),
+        to_device(clip_direction, dev, torch.float32).reshape(3),
     ])
     return ch.to(dev, torch.float32).contiguous(), params.contiguous()
 
@@ -219,37 +219,39 @@ def march_lit_fused(volume, tf_table, light_volume, rays: RayBatch,
     args = (volume, tf_table, light_volume, rays, windowing_vec4, clip_center,
             clip_direction, jitter, step_count, early_termination,
             compat_final_step, occupancy)
-    if volume.device.type == "cpu":
-        return march_lit_fused_plain(*args)
-    dev = volume.device
-    ch, params = _march_inputs(volume, *args[3:9])
-    volume, light_volume = volume.contiguous(), light_volume.contiguous()
-    tf_table = tf_table.contiguous()
-    for name, t in dict(volume=volume, light_volume=light_volume,
-                        tf_table=tf_table).items():
-        _kernels.check(t, name, torch.float32, dev)
-    if tuple(tf_table.shape) != (256, 4):
-        raise ValueError(f"tf_table must be (256, 4), got {tf_table.shape}")
-    if volume.dim() != 3 or light_volume.dim() != 3:
-        raise ValueError("volume and light_volume must be 3-D")
-    grid, scale = None, (0.0, 0.0, 0.0)
-    if occupancy is not None:
-        grid, scale = occupancy.grid.contiguous(), occupancy.cell_scale
-        _kernels.check(grid, "occupancy grid", torch.bool, dev)
-        if grid.dim() != 3:
-            raise ValueError("the occupancy grid must be 3-D")
-    _, h, w = ch.shape
-    out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
-    _kernels.launch(
-        "tbr_march", ch.data_ptr(), volume.data_ptr(),
-        light_volume.data_ptr(), tf_table.data_ptr(), params.data_ptr(),
-        None if grid is None else grid.data_ptr(), out.data_ptr(), h, w,
-        *volume.shape, *light_volume.shape,
-        *(grid.shape if grid is not None else (0, 0, 0)),
-        VOLUME_DENSITY * (1.0 / step_count), VOLUME_DENSITY,
-        float(early_termination), *(float(x) for x in scale),
-        int(bool(compat_final_step)), _kernels.stream_of(ch),
-    )
+    with span(MARCH):
+        if volume.device.type == "cpu":
+            return march_lit_fused_plain(*args)
+        dev = volume.device
+        ch, params = _march_inputs(volume, *args[3:9])
+        volume, light_volume = volume.contiguous(), light_volume.contiguous()
+        tf_table = tf_table.contiguous()
+        for name, t in dict(volume=volume, light_volume=light_volume,
+                            tf_table=tf_table).items():
+            _kernels.check(t, name, torch.float32, dev)
+        if tuple(tf_table.shape) != (256, 4):
+            raise ValueError(
+                f"tf_table must be (256, 4), got {tf_table.shape}")
+        if volume.dim() != 3 or light_volume.dim() != 3:
+            raise ValueError("volume and light_volume must be 3-D")
+        grid, scale = None, (0.0, 0.0, 0.0)
+        if occupancy is not None:
+            grid, scale = occupancy.grid.contiguous(), occupancy.cell_scale
+            _kernels.check(grid, "occupancy grid", torch.bool, dev)
+            if grid.dim() != 3:
+                raise ValueError("the occupancy grid must be 3-D")
+        _, h, w = ch.shape
+        out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+        _kernels.launch(
+            "tbr_march", ch.data_ptr(), volume.data_ptr(),
+            light_volume.data_ptr(), tf_table.data_ptr(), params.data_ptr(),
+            None if grid is None else grid.data_ptr(), out.data_ptr(), h, w,
+            *volume.shape, *light_volume.shape,
+            *(grid.shape if grid is not None else (0, 0, 0)),
+            VOLUME_DENSITY * (1.0 / step_count), VOLUME_DENSITY,
+            float(early_termination), *(float(x) for x in scale),
+            int(bool(compat_final_step)), _kernels.stream_of(ch),
+        )
     march_lit_fused.launches += 1
     return out
 

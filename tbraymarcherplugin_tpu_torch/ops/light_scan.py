@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import LIGHT_SCAN_BWD, span
 from . import _kernels
 
 
@@ -361,14 +362,15 @@ class _PropagateFaceScan(torch.autograd.Function):
     def backward(ctx, g):
         op, y, alpha = ctx.saved_tensors
         off_px, off_py = ctx.offsets
-        d_op, msum, m0 = propagate_face_scan_bwd(g, op, y, off_px, off_py,
-                                                 alpha)
-        plane = op[0]
-        border_field = shift_2d_bilinear_border(torch.zeros_like(plane),
-                                                off_px, off_py, 1.0)
-        a_ones = shift_2d_bilinear_border(torch.ones_like(plane), off_px,
-                                          off_py, 0.0)
-        dalpha = (msum * border_field).sum() + (m0 * a_ones).sum()
+        with span(LIGHT_SCAN_BWD):
+            d_op, msum, m0 = propagate_face_scan_bwd(g, op, y, off_px,
+                                                     off_py, alpha)
+            plane = op[0]
+            border_field = shift_2d_bilinear_border(torch.zeros_like(plane),
+                                                    off_px, off_py, 1.0)
+            a_ones = shift_2d_bilinear_border(torch.ones_like(plane), off_px,
+                                              off_py, 0.0)
+            dalpha = (msum * border_field).sum() + (m0 * a_ones).sum()
         return d_op, dalpha.reshape(alpha.shape), None, None
 
 

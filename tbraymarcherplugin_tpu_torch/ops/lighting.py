@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import to_device
+from ..utils.profiling import LIGHT_SCAN, OCCLUDER, span
 from .light_scan import propagate_face_scan_vjp
 from .sampling import VOLUME_DENSITY, clip_soft_alpha_weight, trilinear_sample
 from .tf_alpha import windowed_tf_alpha_vjp
@@ -185,27 +187,29 @@ def occluder_opacity_volume(volume, tf_table, windowing_vec4, light_dims,
     windowed TF alpha (kernels K3/K8), times the soft clip weight; zero
     where the offset sample leaves [0, 1]^3. Returns a ``light_dims``
     tensor."""
-    dev = volume.device
-    res = torch.tensor(light_dims, dtype=torch.float32, device=dev)
-    grids = torch.meshgrid(
-        *[torch.arange(d, dtype=torch.float32, device=dev) for d in light_dims],
-        indexing="ij",
-    )
-    off = torch.as_tensor(np.asarray(uvw_offset, np.float32), device=dev)
-    uvw = (torch.stack(grids, dim=-1) + 0.5) / res + off
-    alpha_weight = clip_soft_alpha_weight(uvw, clip_center, clip_direction,
-                                          res)
-    inside = ((uvw >= 0.0) & (uvw <= 1.0)).all(-1)
-    vd = tuple(volume.shape)
-    if all(v % l == 0 for v, l in zip(vd, light_dims)):
-        value = _const_shift_trilinear(volume, light_dims, uvw_offset)
-    else:
-        value = trilinear_sample(volume, uvw)
-    step = float(np.float32(step_size) * np.float32(VOLUME_DENSITY))
-    opacity = windowed_tf_alpha_vjp(value, tf_table, windowing_vec4, step)
-    keep = inside & (alpha_weight > 0.0)
-    return torch.where(keep, opacity * alpha_weight,
-                       torch.zeros_like(opacity))
+    with span(OCCLUDER):
+        dev = volume.device
+        res = to_device(light_dims, dev, torch.float32)
+        grids = torch.meshgrid(
+            *[torch.arange(d, dtype=torch.float32, device=dev)
+              for d in light_dims],
+            indexing="ij",
+        )
+        off = to_device(np.asarray(uvw_offset, np.float32), dev)
+        uvw = (torch.stack(grids, dim=-1) + 0.5) / res + off
+        alpha_weight = clip_soft_alpha_weight(uvw, clip_center,
+                                              clip_direction, res)
+        inside = ((uvw >= 0.0) & (uvw <= 1.0)).all(-1)
+        vd = tuple(volume.shape)
+        if all(v % l == 0 for v, l in zip(vd, light_dims)):
+            value = _const_shift_trilinear(volume, light_dims, uvw_offset)
+        else:
+            value = trilinear_sample(volume, uvw)
+        step = float(np.float32(step_size) * np.float32(VOLUME_DENSITY))
+        opacity = windowed_tf_alpha_vjp(value, tf_table, windowing_vec4, step)
+        keep = inside & (alpha_weight > 0.0)
+        return torch.where(keep, opacity * alpha_weight,
+                           torch.zeros_like(opacity))
 
 
 def _propagate_one_face(volume, tf_table, windowing_vec4, clip_center,
@@ -229,26 +233,27 @@ def scan_one_face(opacity, uv_off, light_alpha, face: int, light_dims,
                   apply_write_threshold: bool = True):
     """The transmitted light of one face from its ``light_dims`` occluder
     field: the second half of :func:`_propagate_one_face`."""
-    ax = transposed_axes(face)
-    tdims = (light_dims[ax[0]], light_dims[ax[1]], light_dims[ax[2]])
-    opacity_t = opacity.permute(ax)
-    if face_direction(face) == -1:
-        opacity_t = opacity_t.flip(2)
-    uv = np.asarray(uv_off, np.float32)
-    off_px = uv[0] * np.float32(tdims[0])
-    off_py = uv[1] * np.float32(tdims[1])
-    slices = propagate_face_scan_vjp(opacity_t.movedim(2, 0).contiguous(),
-                                     off_px, off_py, light_alpha)
-    result_t = slices.movedim(0, 2)
-    if apply_write_threshold:
-        result_t = torch.where(result_t.abs() > WRITE_SKIP_THRESHOLD,
-                               result_t, torch.zeros_like(result_t))
-    if face_direction(face) == -1:
-        result_t = result_t.flip(2)
-    inv = [0, 0, 0]
-    for i, a in enumerate(ax):
-        inv[a] = i
-    return result_t.permute(inv).contiguous()
+    with span(LIGHT_SCAN, face):
+        ax = transposed_axes(face)
+        tdims = (light_dims[ax[0]], light_dims[ax[1]], light_dims[ax[2]])
+        opacity_t = opacity.permute(ax)
+        if face_direction(face) == -1:
+            opacity_t = opacity_t.flip(2)
+        uv = np.asarray(uv_off, np.float32)
+        off_px = uv[0] * np.float32(tdims[0])
+        off_py = uv[1] * np.float32(tdims[1])
+        slices = propagate_face_scan_vjp(opacity_t.movedim(2, 0).contiguous(),
+                                         off_px, off_py, light_alpha)
+        result_t = slices.movedim(0, 2)
+        if apply_write_threshold:
+            result_t = torch.where(result_t.abs() > WRITE_SKIP_THRESHOLD,
+                                   result_t, torch.zeros_like(result_t))
+        if face_direction(face) == -1:
+            result_t = result_t.flip(2)
+        inv = [0, 0, 0]
+        for i, a in enumerate(ax):
+            inv[a] = i
+        return result_t.permute(inv).contiguous()
 
 
 def compute_light_contribution(volume, tf_table, windowing_vec4, clip_center,

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..scene import Camera, VolumeTransform
+from ..utils.device import to_device
 
 _MASK32 = 0xFFFFFFFF
 
@@ -43,10 +44,10 @@ def camera_rays(camera: Camera, width: int, height: int, device=None):
     xs = xs * 2.0 - 1.0
     ys = 1.0 - (torch.arange(height, dtype=f32, device=device) + 0.5) / height * 2.0
     px, py = torch.meshgrid(xs * t, ys * t * aspect, indexing="xy")
-    rot = torch.as_tensor(camera.rotation, device=device)
+    rot = to_device(camera.rotation, device)
     dirs = px[..., None] * rot[0] + py[..., None] * rot[1] + rot[2]
     dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
-    origins = torch.as_tensor(camera.position, device=device).expand(dirs.shape)
+    origins = to_device(camera.position, device).expand(dirs.shape)
     return origins, dirs
 
 
@@ -55,9 +56,9 @@ def _local_rays(camera: Camera, transform: VolumeTransform, width: int,
     """(H, W, 3) ray origins in UVW space and unit directions in local
     space (normalized after the inverse scale)."""
     origins_w, dirs_w = camera_rays(camera, width, height, device)
-    rot = torch.as_tensor(transform.rotation, device=device)
-    trans = torch.as_tensor(transform.translation, device=device)
-    scale = torch.as_tensor(transform.scale, device=device)
+    rot = to_device(transform.rotation, device)
+    trans = to_device(transform.translation, device)
+    scale = to_device(transform.scale, device)
     origin_uvw = ((origins_w - trans) @ rot.T) / scale + 0.5
     dirs_local = (dirs_w @ rot.T) / scale
     dirs_local = dirs_local / torch.linalg.vector_norm(
@@ -79,8 +80,8 @@ def setup_rays(camera: Camera, transform: VolumeTransform, width: int,
     t0, t1 = ray_aabb_intersection(origin_uvw, dirs_local)
     t0 = t0.clamp(min=0.0)
     if scene_depth is not None:
-        t1 = torch.minimum(t1, torch.as_tensor(
-            scene_depth, dtype=torch.float32, device=t1.device))
+        t1 = torch.minimum(t1, to_device(scene_depth, t1.device,
+                                         torch.float32))
     thickness = (t1 - t0).clamp(min=0.0)
     entry = origin_uvw + t0[..., None] * dirs_local
     return RayBatch(entry=entry, direction=dirs_local, thickness=thickness)

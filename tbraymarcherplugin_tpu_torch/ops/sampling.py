@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import to_device
 from .transfer import sample_tf
 
 # Fixed density multiplier of step sizes (`RaymarcherCommon.usf:15-18`).
@@ -91,9 +92,8 @@ def sample_windowed_volume_step(uvw, step_size, volume, tf_table,
 def is_clipped(uvw, clip_center, clip_direction) -> torch.Tensor:
     """Half-space clip test (`RaymarcherCommon.usf:22-25`): True where
     ``dot(P - center, dir) <= 0``, the dot product summed x, y, then z."""
-    cc = torch.as_tensor(clip_center, dtype=torch.float32, device=uvw.device)
-    cd = torch.as_tensor(clip_direction, dtype=torch.float32,
-                         device=uvw.device)
+    cc = to_device(clip_center, uvw.device, torch.float32)
+    cd = to_device(clip_direction, uvw.device, torch.float32)
     d = (uvw - cc) * cd
     return d[..., 0] + d[..., 1] + d[..., 2] <= 0.0
 
@@ -103,9 +103,9 @@ def clip_soft_alpha_weight(uvw, clip_center, clip_direction, resolution):
     the un-clipped fraction of a voxel, approximated from its distance to
     the plane in voxel units. Returns (...,) weights in [0, 1]."""
     dev = uvw.device
-    res = torch.as_tensor(resolution, dtype=torch.float32, device=dev)
-    cc = torch.as_tensor(clip_center, dtype=torch.float32, device=dev)
-    cd = torch.as_tensor(clip_direction, dtype=torch.float32, device=dev)
+    res = to_device(resolution, dev, torch.float32)
+    cc = to_device(clip_center, dev, torch.float32)
+    cd = to_device(clip_direction, dev, torch.float32)
     dist = ((uvw - cc) * cd).sum(-1)
     offset = cd * dist[..., None] * res
     voxel_distance = torch.linalg.vector_norm(offset, dim=-1)

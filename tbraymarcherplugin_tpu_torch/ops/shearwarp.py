@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.device import to_device
 from .compositing import EARLY_TERMINATION_ALPHA
 from .sampling import sample_windowed_transfer_function
 from .tf_rgba import windowed_tf_rgba_vjp
@@ -272,8 +273,8 @@ def _t(x, device, dtype=None):
     """Plan array -> tensor on ``device`` (int arrays -> int64 indices)."""
     x = np.asarray(x)
     if x.dtype.kind == "i":
-        return torch.from_numpy(x.astype(np.int64)).to(device)
-    return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+        return to_device(x.astype(np.int64), device)
+    return to_device(x.astype(np.float32), device, dtype)
 
 
 def _volume_planes(vol_t: torch.Tensor, plan: ShearWarpPlan,

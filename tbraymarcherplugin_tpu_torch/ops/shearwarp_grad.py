@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import COMPOSITE_BWD, span
 from . import _kernels
 from . import composite as C
 from .compositing import EARLY_TERMINATION_ALPHA
@@ -271,10 +272,11 @@ class _FusedComposite(torch.autograd.Function):
         geo = ctx.geo
         # one layout of g on both routes: the plain version's sums then run
         # in the same order whatever layout the caller's cotangent has
-        dW, dL, dtf, dwin = composite_bwd(
-            W, L, tf_table, geo["pa"], e1, step_world, win, g.contiguous(),
-            geo["e0"], geo["early_termination"], geo["d1"], geo["d2"],
-            geo["k_real"])
+        with span(COMPOSITE_BWD):
+            dW, dL, dtf, dwin = composite_bwd(
+                W, L, tf_table, geo["pa"], e1, step_world, win,
+                g.contiguous(), geo["e0"], geo["early_termination"],
+                geo["d1"], geo["d2"], geo["k_real"])
         return dW, dL, dtf.to(tf_table.dtype), dwin, None
 
 

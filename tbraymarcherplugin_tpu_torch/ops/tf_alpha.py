@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import TF_ALPHA_BWD, span
 from . import _kernels
 
 # K8 (csrc/tf_alpha_bwd.cu): at most one block of 1024 threads per SM, each
@@ -226,8 +227,9 @@ class _WindowedTFAlpha(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         values, tf_table, win = ctx.saved_tensors
-        dval, dtf, dwin = windowed_tf_alpha_bwd(values, tf_table, win,
-                                                ctx.step_size, g)
+        with span(TF_ALPHA_BWD):
+            dval, dtf, dwin = windowed_tf_alpha_bwd(values, tf_table, win,
+                                                    ctx.step_size, g)
         return dval, dtf.to(tf_table.dtype), dwin, None
 
 

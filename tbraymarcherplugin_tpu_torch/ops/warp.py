@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import WARP, WARP_BWD, span
 from . import _kernels
 from .shearwarp import ShearWarpPlan, screen_fields, warp_rows
 
@@ -130,7 +131,8 @@ class _RowLerp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return row_lerp_bwd(g, idx, ctx.n, ctx.groups), None, None
+        with span(WARP_BWD):
+            return row_lerp_bwd(g, idx, ctx.n, ctx.groups), None, None
 
 
 def row_lerp_vjp(rows: torch.Tensor, idx: torch.Tensor,
@@ -166,17 +168,18 @@ def warp_to_screen_fused(intermediate: torch.Tensor, plan: ShearWarpPlan,
     """(4, n1, n2) channel-major intermediate image -> (height, width, 4)
     screen image via two :func:`row_lerp_vjp` passes and the validity
     mask."""
-    dev = intermediate.device
-    p1r, p2r, pdr, W, H = warp_rows(plan, width, height)
-    C = intermediate.shape[0]
-    idx1 = pass1_index(plan, W, p1r, p2r, pdr, dev)  # (n2, W)
-    rows1 = intermediate.transpose(1, 2).reshape(C * plan.n2, plan.n1)
-    M = row_lerp_vjp(rows1, idx1, C).view(C, plan.n2, W)
-    j_uv, valid = screen_fields(plan, W, H, p1r, p2r, pdr, dev)  # (W, H)
-    rows2 = M.transpose(1, 2).reshape(C * W, plan.n2)
-    S = row_lerp_vjp(rows2, j_uv, C).view(C, W, H)
-    S = torch.where(valid[None], S, torch.zeros_like(S))
-    img = S.permute(2, 1, 0)  # (H, W, C)
-    if plan.swap_warp:
-        img = img.permute(1, 0, 2)
-    return img.contiguous()
+    with span(WARP):
+        dev = intermediate.device
+        p1r, p2r, pdr, W, H = warp_rows(plan, width, height)
+        C = intermediate.shape[0]
+        idx1 = pass1_index(plan, W, p1r, p2r, pdr, dev)  # (n2, W)
+        rows1 = intermediate.transpose(1, 2).reshape(C * plan.n2, plan.n1)
+        M = row_lerp_vjp(rows1, idx1, C).view(C, plan.n2, W)
+        j_uv, valid = screen_fields(plan, W, H, p1r, p2r, pdr, dev)  # (W, H)
+        rows2 = M.transpose(1, 2).reshape(C * W, plan.n2)
+        S = row_lerp_vjp(rows2, j_uv, C).view(C, W, H)
+        S = torch.where(valid[None], S, torch.zeros_like(S))
+        img = S.permute(2, 1, 0)  # (H, W, C)
+        if plan.swap_warp:
+            img = img.permute(1, 0, 2)
+        return img.contiguous()

@@ -39,6 +39,7 @@ from .ops.rays import jitter_values, setup_rays
 from .ops.transfer import default_grayscale_tf
 from .ops.warp import warp_to_screen_fused
 from .scene import Camera, ClipPlane, DirLight, VolumeTransform
+from .utils import profiling as P
 from .utils.device import resolve_device
 from .utils.volume_info import VolumeInfo, WindowingParameters
 
@@ -139,6 +140,7 @@ class Renderer(nn.Module):
         self.register_buffer("light_volume", L.clear_light_volume(
             self.light_volume_dims(), device=volume.device))
         self._frame_index = 0
+        self._renders = 0
         self._lights_dirty = True
         self._sw_key = None
         self._sw_plan = None
@@ -292,28 +294,32 @@ class Renderer(nn.Module):
         if self.config.render_mode != "lit":
             return
         if self._lights_dirty or set(self._prev_lights) != set(self.lights):
-            self.reset_all_lights()
+            with P.span(P.LIGHTING):
+                self.reset_all_lights()
             return
         changed = [name for name, light in self.lights.items()
                    if self._light_key(light) != self._prev_lights[name]]
         if not changed:
             return
-        if len(changed) > max(1, len(self.lights) // 2) and len(self.lights) > 1:
-            self.reset_all_lights()
-            return
-        args = self._light_args()
-        for name in changed:
-            light = self.lights[name]
-            old_dir, old_intensity, _ = self._prev_lights[name]
-            # The old key was captured under the current transform.
-            old_local = self._local_dir(DirLight.create(old_dir, old_intensity))
-            self.light_volume = L.change_dir_light(
-                self.light_volume, *args, old_local, old_intensity,
-                self._local_dir(light), light.intensity,
-                apply_write_threshold=self.config.apply_write_threshold,
-            )
-            self._prev_lights[name] = self._light_key(light)
-        self._maybe_quantize()
+        with P.span(P.LIGHTING):
+            if (len(changed) > max(1, len(self.lights) // 2)
+                    and len(self.lights) > 1):
+                self.reset_all_lights()
+                return
+            args = self._light_args()
+            for name in changed:
+                light = self.lights[name]
+                old_dir, old_intensity, _ = self._prev_lights[name]
+                # The old key was captured under the current transform.
+                old_local = self._local_dir(
+                    DirLight.create(old_dir, old_intensity))
+                self.light_volume = L.change_dir_light(
+                    self.light_volume, *args, old_local, old_intensity,
+                    self._local_dir(light), light.intensity,
+                    apply_write_threshold=self.config.apply_write_threshold,
+                )
+                self._prev_lights[name] = self._light_key(light)
+            self._maybe_quantize()
 
     def ensure_octree(self, force: bool = False):
         """Bring the min/max pyramid up to date (`bRequestedOctreeRebuild`)
@@ -337,6 +343,12 @@ class Renderer(nn.Module):
         a per-pixel λ ceiling on shear-warp frames
         (`shearwarp.depth_to_lambda_max`), the rays' exit on march frames.
         """
+        self._renders += 1
+        with P.span(P.RENDER, self._renders):
+            return self._render(camera, width, height, scene_depth)
+
+    def _render(self, camera: Camera, width: int, height: int,
+                scene_depth=None) -> torch.Tensor:
         mode = self.config.render_mode
         self._check_mode(mode)
         self.ensure_lighting()
@@ -345,15 +357,16 @@ class Renderer(nn.Module):
             img = self._render_shearwarp(camera, width, height, scene_depth)
             if img is not None:
                 return img
-        rays = setup_rays(camera, self.transform, width, height,
-                          scene_depth=scene_depth, device=self.device)
-        jitter = None
-        if self.config.jitter:
-            # the march's own per-pixel field; the frame index advances only
-            # on frames that march
-            jitter = jitter_values(width, height, self._frame_index,
-                                   device=self.device)
-            self._frame_index += 1
+        with P.span(P.RAYS):
+            rays = setup_rays(camera, self.transform, width, height,
+                              scene_depth=scene_depth, device=self.device)
+            jitter = None
+            if self.config.jitter:
+                # the march's own per-pixel field; the frame index advances
+                # only on frames that march
+                jitter = jitter_values(width, height, self._frame_index,
+                                       device=self.device)
+                self._frame_index += 1
         if mode == "lit":
             return self._render_lit(rays, jitter)
         win = self.windowing.as_vec4(self.device)
@@ -382,9 +395,10 @@ class Renderer(nn.Module):
             tuple(vol_shape), tuple(light_shape), self.config.step_count,
         )
         if self._sw_key != key:
-            self._sw_plan = SW.plan_shearwarp(
-                camera, self.transform, vol_shape, light_shape, width, height,
-                max_planes=self.config.step_count)
+            with P.span(P.PLAN):
+                self._sw_plan = SW.plan_shearwarp(
+                    camera, self.transform, vol_shape, light_shape, width,
+                    height, max_planes=self.config.step_count)
             self._sw_key = key
         return self._sw_plan
 
@@ -446,10 +460,11 @@ class Renderer(nn.Module):
         volume, window and TF (with `octree.LERP_MARGIN`, so skipping is
         exact to the bit), built from the octree on first use."""
         if self._occ is None:
-            self.ensure_octree(force=True)
-            self._occ = O.occupancy_grid(
-                self.octree, self.windowing.as_vec4(self.device),
-                self.tf_table, mip=OCCUPANCY_MIP)
+            with P.span(P.OCCUPANCY):
+                self.ensure_octree(force=True)
+                self._occ = O.occupancy_grid(
+                    self.octree, self.windowing.as_vec4(self.device),
+                    self.tf_table, mip=OCCUPANCY_MIP)
         return self._occ
 
     def _render_lit(self, rays, jitter):

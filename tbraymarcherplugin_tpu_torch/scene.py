@@ -13,6 +13,8 @@ import dataclasses
 
 import numpy as np
 
+from .utils.profiling import CAMERA, span
+
 
 def _f32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
@@ -129,19 +131,20 @@ class Camera:
     def look_at(position, target, up=(0.0, 0.0, 1.0),
                 fov_degrees=60.0) -> "Camera":
         """Camera at ``position`` looking at ``target``."""
-        position = np.asarray(position, np.float64)
-        forward = np.asarray(target, np.float64) - position
-        forward = forward / np.linalg.norm(forward)
-        up = np.asarray(up, np.float64)
-        right = np.cross(forward, up)
-        nrm = np.linalg.norm(right)
-        if nrm < 1e-8:  # forward parallel to up: pick any perpendicular
-            right = np.cross(forward, np.array([1.0, 0.0, 0.0]))
+        with span(CAMERA):
+            position = np.asarray(position, np.float64)
+            forward = np.asarray(target, np.float64) - position
+            forward = forward / np.linalg.norm(forward)
+            up = np.asarray(up, np.float64)
+            right = np.cross(forward, up)
             nrm = np.linalg.norm(right)
-        right = right / nrm
-        true_up = np.cross(right, forward)
-        rot = np.stack([right, true_up, forward])
-        return Camera.create(position, rot, fov_degrees)
+            if nrm < 1e-8:  # forward parallel to up: pick any perpendicular
+                right = np.cross(forward, np.array([1.0, 0.0, 0.0]))
+                nrm = np.linalg.norm(right)
+            right = right / nrm
+            true_up = np.cross(right, forward)
+            rot = np.stack([right, true_up, forward])
+            return Camera.create(position, rot, fov_degrees)
 
 
 def orbit_camera(angle, radius, height=0.0, target=(0.0, 0.0, 0.0),

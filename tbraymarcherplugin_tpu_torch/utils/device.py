@@ -1,8 +1,12 @@
-"""Where an entry point puts its tensors when the caller names no device."""
+"""Where an entry point puts its tensors when the caller names no device,
+and the one helper of the frame's host-to-device copies."""
 
 from __future__ import annotations
 
 import torch
+from torch.autograd import _profiler_enabled
+
+from .profiling import UPLOAD, span
 
 
 def resolve_device(device=None, like=None) -> torch.device:
@@ -21,3 +25,16 @@ def resolve_device(device=None, like=None) -> torch.device:
             "no CUDA device: the port runs on the GPU by default; pass "
             "device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``, in a
+    ``tbr.upload`` span where that copies host data (an array, a Python
+    number or a CPU tensor) to another device. With no profiler recording
+    it is ``torch.as_tensor`` after one check of the profiler's state."""
+    if _profiler_enabled() and device is not None and (
+            torch.device(device).type != "cpu") and not (
+            isinstance(x, torch.Tensor) and x.device.type != "cpu"):
+        with span(UPLOAD):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)

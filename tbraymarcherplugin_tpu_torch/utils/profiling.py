@@ -1,17 +1,23 @@
-"""Profiling: keyed wall-clock timers, phase bookmarks, device traces.
+"""Profiling: spans on the profiler's clock, phase bookmarks, device traces.
 
 Counterpart of `tbraymarcherplugin_tpu/utils/profiling.py`, after the
-reference's three profiling mechanisms:
+reference's profiling mechanisms:
 
-- :class:`PerfTimer`   <- `FPerfTimer` (`FPerfTimer.h:3-15`): a static map
-  of keyed wall-clock timers, behind a lock.
+- :func:`span`: a named host range around one layer's work, named by the
+  ``tbr.`` constants below. While a `torch.profiler` records, it is a
+  `torch.profiler.record_function` range, which lands in the profiler's
+  trace on the clock of the device activity it launches; otherwise it is
+  one shared null context, so that a span costs one check of the
+  profiler's state.
 - :class:`PhaseTracer` <- the Unreal Insights `TRACE_BOOKMARK` phases of
   `APerformanceTest1` (`PerformanceTest1.cpp:51-208`): named phases with
   frame counts, reported as the JAX package's JSON.
 - :func:`device_trace` <- `SCOPED_GPU_STAT` / draw events
   (`LightingShaders.cpp:24-30`): a `torch.profiler` trace (CPU and, where
   there is a card, CUDA activity) written to ``log_dir`` as a Chrome trace
-  (`chrome://tracing`, Perfetto), with the block under a named range.
+  (`chrome://tracing`, Perfetto), with the block under a named range. It
+  is how an operator gets the spans: a viewer or CLI frame rendered inside
+  ``device_trace(log_dir)`` writes them beside the kernels they launched.
 """
 
 from __future__ import annotations
@@ -19,36 +25,46 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import threading
 import time
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+# The spans (`span`) at the layer boundaries of a frame, a rebuild and a
+# fit step. Those marked "when" open only when their work runs, so that
+# their count in a trace is the count of that work.
+CAMERA = "tbr.camera"  # a viewer's per-frame camera, Camera.look_at
+RENDER = "tbr.render"  # Renderer.render (args: its render count)
+LIGHTING = "tbr.lighting"  # ensure_lighting, when it rebuilds or moves a light
+OCCLUDER = "tbr.occluder"  # one face's occluder opacity field
+LIGHT_SCAN = "tbr.light_scan"  # one face's scan, K4 (args: the face)
+OCCUPANCY = "tbr.occupancy"  # the occupancy grid, when it is built
+PLAN = "tbr.plan"  # the host shear-warp plan, when the cache misses
+TILE_BOUNDS = "tbr.tile_bounds"  # K1's tile plane bounds, when computed
+PRESHEAR = "tbr.preshear"  # the pre-shear of the volume and light planes
+COMPOSITE = "tbr.composite"  # K1
+WARP = "tbr.warp"  # the screen warp, K2
+RAYS = "tbr.rays"  # a march frame's rays and jitter
+MARCH = "tbr.march"  # K9
+UPLOAD = "tbr.upload"  # a host-to-device copy, when one is made
+SCENE = "tbr.scene"  # models.pipeline.render_lit_scene
+COMPOSITE_BWD = "tbr.composite_bwd"  # K5
+LIGHT_SCAN_BWD = "tbr.light_scan_bwd"  # K7
+TF_ALPHA_BWD = "tbr.tf_alpha_bwd"  # K8
+WARP_BWD = "tbr.warp_bwd"  # K6
+
+_OFF = contextlib.nullcontext()
 
 
-class PerfTimer:
-    """Keyed wall-clock timers (`FPerfTimer::StartTimer/StopTimer`)."""
-
-    _lock = threading.Lock()
-    _starts: Dict[str, float] = {}
-
-    @classmethod
-    def start(cls, key: str) -> None:
-        with cls._lock:
-            cls._starts[key] = time.perf_counter()
-
-    @classmethod
-    def stop(cls, key: str) -> float:
-        """Seconds since ``start(key)``; 0.0 for a key never started."""
-        now = time.perf_counter()
-        with cls._lock:
-            t0 = cls._starts.pop(key, None)
-        return 0.0 if t0 is None else now - t0
-
-    @classmethod
-    def clear(cls) -> None:
-        with cls._lock:
-            cls._starts.clear()
+def span(name: str, args=None):
+    """A ``record_function(name, str(args))`` range while a
+    `torch.profiler` records; otherwise the one shared null context, with
+    nothing built and ``args`` not formatted."""
+    if not _profiler_enabled():
+        return _OFF
+    return record_function(name, None if args is None else str(args))
 
 
 class PhaseTracer:
@@ -109,7 +125,3 @@ def device_trace(log_dir: Optional[str] = None, name: str = "tbraymarcher"):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, f"{name}.pt.trace.json"))
-
-
-# a named range around one kernel or phase, shown in the profiler's traces
-named_scope = torch.profiler.record_function

@@ -19,6 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .device import to_device
+
 
 class VoxelFormat(enum.Enum):
     """Voxel storage format of a loaded volume (`VolumeInfo.h:13-27`)."""
@@ -73,11 +75,11 @@ class WindowingParameters:
 
     def as_vec4(self, device=None) -> torch.Tensor:
         """(center, width, low, high) as float32, like `ToLinearColor`."""
-        return torch.tensor(
+        return to_device(
             [float(self.center), float(self.width),
              1.0 if self.low_cutoff else 0.0,
              1.0 if self.high_cutoff else 0.0],
-            dtype=torch.float32, device=device,
+            device, torch.float32,
         )
 
 
