@@ -10,8 +10,10 @@ Phases, one line each:
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
      at the shapes of the main path (max abs error against a stated limit,
      CUDA-event times of both; K2 exactly, on both warp passes of the
-     frame), and K2's row lerp as one `grid_sample`
-     call, K2's yardstick (`library_ms`), checked against the plain version
+     frame), K3's occluder source (the volume sampled, the cube test, the
+     clip weight and the alpha in one launch) on one face at 256^3 and at
+     CHEST_DIMS, one device operation a call, and K2's row lerp as one
+     `grid_sample` call, K2's yardstick (`library_ms`), checked against the plain version
      and timed the same ways;
   4. slice: the full lit frame (256^3 CT phantom, bone TF, window
      (0.5, 0.8), one light, 1920x1080, 150 planes, jitter on) through
@@ -147,6 +149,13 @@ import time
 from unittest import mock
 
 DIMS = (256, 256, 256)
+# Phase 3: K3's occluder source also at the chest CT's shape (LUNA16,
+# full-resolution light), one face
+CHEST_DIMS = (512, 512, 384)
+# The kernels of the shear-warp fwd+bwd, forward (K1, K2, K3's occluder
+# source, K4) then backward (K5-K8)
+FWD_BWD = ("composite", "row_lerp", "occluder", "light_scan",
+           "composite_bwd", "row_lerp_bwd", "light_scan_bwd", "tf_alpha_bwd")
 WIDTH, HEIGHT, STEPS = 1920, 1080, 150
 WINDOW = (0.5, 0.8)
 FWD_BWD_CENTERS = (0.55, 0.56, 0.57)
@@ -159,7 +168,7 @@ FOV = 40.0
 # csrc/common.cuh); what remains are ulps of expf/logf against PyTorch's
 # exp/log (K1, K3). K2 and K4 have no transcendentals and agree exactly.
 LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
-          "light_scan": 1e-5, "march": 2e-5}
+          "occluder": 1e-6, "light_scan": 1e-5, "march": 2e-5}
 # `grid_sample` as K2's yardstick against K2's plain version: it maps its
 # normalized coordinate back to texels in float32, ((x + 1) / 2) * (N - 1),
 # which moves a tap by up to ~1e-4 texel at N ~ 1900 (2.3e-5 on the bench
@@ -250,8 +259,12 @@ FIT_START_CENTER = 0.6
 # on (`march_bound`, `composite_ops`).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# K3's occluder source, per light voxel: the trilinear sample (7 lerps of
+# 3: 21), the UVW along x (3) and its cube test (2), the clip weight
+# (distance 4, voxel offset 6, norm 4, sign 2, weight 5), keep (1), the
+# windowed alpha (26) and the product (1): 75.
 OPS_PER_ELEMENT = {
-    "row_lerp": 6, "tf_alpha": 26, "light_scan": 20,
+    "row_lerp": 6, "tf_alpha": 26, "occluder": 75, "light_scan": 20,
     "composite_bwd": 120, "row_lerp_bwd": 8, "light_scan_bwd": 40,
     "tf_alpha_bwd": 45, "tf_rgba": 35, "tf_rgba_bwd": 75, "gather_probe": 1,
 }
@@ -300,6 +313,7 @@ REPLACES = {
     "composite_depth": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
     "row_lerp": "tbraymarcherplugin_tpu/ops/pallas_warp.py:34",
     "tf_alpha": "tbraymarcherplugin_tpu/ops/pallas_tf.py:29",
+    "occluder": "tbraymarcherplugin_tpu/ops/lighting.py:199",
     "light_scan": "tbraymarcherplugin_tpu/ops/pallas_lighting.py:57",
     "composite_bwd": "tbraymarcherplugin_tpu/ops/shearwarp_grad.py:109",
     "row_lerp_bwd": "tbraymarcherplugin_tpu/ops/pallas_warp.py:93",
@@ -317,6 +331,7 @@ SOURCES = {
     "composite_depth": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
     "row_lerp": "tbraymarcherplugin_tpu_torch/csrc/row_lerp.cu",
     "tf_alpha": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha.cu",
+    "occluder": "tbraymarcherplugin_tpu_torch/csrc/tf_alpha.cu",
     "light_scan": "tbraymarcherplugin_tpu_torch/csrc/light_scan.cu",
     "composite_bwd": "tbraymarcherplugin_tpu_torch/csrc/composite_bwd.cu",
     "row_lerp_bwd": "tbraymarcherplugin_tpu_torch/csrc/row_lerp_bwd.cu",
@@ -546,15 +561,18 @@ def composite_bound(torch, kw, out, stats):
 
 
 def kernel_table():
-    """(name, module, wrapper name) of each kernel, K1-K11."""
+    """(name, module, wrapper name) of each kernel, K1-K11 (K3 twice: on
+    values and with its occluder source)."""
     from tbraymarcherplugin_tpu_torch.ops import composite, fused_march
-    from tbraymarcherplugin_tpu_torch.ops import light_scan, shearwarp_grad
+    from tbraymarcherplugin_tpu_torch.ops import light_scan, lighting
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad
     from tbraymarcherplugin_tpu_torch.ops import tf_alpha, tf_rgba, warp
     from tbraymarcherplugin_tpu_torch.tools import micro
 
     return (("composite", composite, "composite"),
             ("row_lerp", warp, "row_lerp"),
             ("tf_alpha", tf_alpha, "windowed_tf_alpha"),
+            ("occluder", lighting, "occluder_opacity"),
             ("light_scan", light_scan, "propagate_face_scan"),
             ("composite_bwd", shearwarp_grad, "composite_bwd"),
             ("row_lerp_bwd", warp, "row_lerp_bwd"),
@@ -704,7 +722,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
             dict(march_impl="shearwarp", shearwarp_tf_unit="fused",
                  shearwarp_dtype=dtype), **plan_kw)
 
-    table = kernel_table()[:8]  # K1-K8: the shear-warp fwd+bwd
+    table = [t for t in kernel_table() if t[0] in FWD_BWD]
     step = make_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
     for _, mod, fn in table:
         getattr(mod, fn).launches = 0
@@ -1150,7 +1168,7 @@ def dense_phase(torch, volume, cam, transform, clip, card, results):
 
     # every kernel of the dense fwd+bwd: the illumination's K3/K4 and their
     # backward K7/K8, and the TF unit's K10a/K10b
-    path = ("tf_alpha", "light_scan", "light_scan_bwd", "tf_alpha_bwd",
+    path = ("occluder", "light_scan", "light_scan_bwd", "tf_alpha_bwd",
             "tf_rgba", "tf_rgba_bwd")
     table = [t for t in kernel_table() if t[0] in path]
     step = dense_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
@@ -1296,7 +1314,7 @@ def fit_phase(torch, volume, cam, transform, clip, card):
                                      clip.direction, plans, DIMS,
                                      march_impl="shearwarp",
                                      shearwarp_plan=plan)
-    path = ("tf_alpha", "light_scan", "light_scan_bwd", "tf_alpha_bwd")
+    path = ("occluder", "light_scan", "light_scan_bwd", "tf_alpha_bwd")
     table = [t for t in kernel_table() if t[0] in path]
     with tempfile.TemporaryDirectory() as ckpt:
         for _, mod, fn in kernel_table():
@@ -1591,8 +1609,8 @@ def from_disk_phase(torch, card):
     from tbraymarcherplugin_tpu_torch.io import load_volume
     from tbraymarcherplugin_tpu_torch.ops import composite as K1
     from tbraymarcherplugin_tpu_torch.ops import light_scan as K4
+    from tbraymarcherplugin_tpu_torch.ops import lighting as Lt
     from tbraymarcherplugin_tpu_torch.ops import sdf_march, synthetic
-    from tbraymarcherplugin_tpu_torch.ops import tf_alpha as K3
     from tbraymarcherplugin_tpu_torch.ops import warp as K2
     from tbraymarcherplugin_tpu_torch.renderer import Renderer, RendererConfig
     from tbraymarcherplugin_tpu_torch.scene import DirLight
@@ -1658,7 +1676,7 @@ def from_disk_phase(torch, card):
         cli_ms = {}
         for label, extra, variants, lit in runs:
             K1.composite.variant_launches.clear()
-            for k in (K1.composite, K2.row_lerp, K3.windowed_tf_alpha,
+            for k in (K1.composite, K2.row_lerp, Lt.occluder_opacity,
                       K4.propagate_face_scan):
                 k.launches = 0
             run = PhaseTracer()
@@ -1667,10 +1685,10 @@ def from_disk_phase(torch, card):
                   f"render_cli {label}")
             launches = dict(K1.composite.variant_launches,
                             row_lerp=K2.row_lerp.launches,
-                            tf_alpha=K3.windowed_tf_alpha.launches,
+                            occluder=Lt.occluder_opacity.launches,
                             light_scan=K4.propagate_face_scan.launches)
             for name in variants + ("row_lerp",) + (
-                    ("tf_alpha", "light_scan") if lit else ()):
+                    ("occluder", "light_scan") if lit else ()):
                 check(launches.get(name, 0) > 0,
                       f"render_cli {label}: kernel {name} not launched")
             ms = {n: [round(p["ms_per_frame"], 2) for p in run.phases
@@ -1855,7 +1873,7 @@ def _sharded_paths(torch, P, volume, tf, light_volume, plan, cam, transform,
     cc, cd = clip.center, clip.direction
     lv = light_volume
     bf16 = torch.bfloat16
-    table = {name: (mod, fn) for name, mod, fn in kernel_table()[:8]}
+    table = {name: (mod, fn) for name, mod, fn in kernel_table()}
 
     def zero(names):
         for n in names:
@@ -2006,7 +2024,7 @@ def _sharded_paths(torch, P, volume, tf, light_volume, plan, cam, transform,
         loss_single = l2(PP.render_lit_scene(
             params(FWD_BWD_CENTERS[0]), flat, cc, cd, plans, DIMS,
             step_count=TRAIN_STEPS), tgt)
-    train = ("tf_alpha", "light_scan", "light_scan_bwd", "tf_alpha_bwd")
+    train = ("occluder", "light_scan", "light_scan_bwd", "tf_alpha_bwd")
     zero(train)
     runs, step_ms = [], []
     for overlap in (False, False, True):  # bulk twice: the atomics' spread
@@ -2183,6 +2201,36 @@ def main() -> int:
            device_ms(torch, lambda: K3.windowed_tf_alpha(*alpha_args), 20),
            [(alpha_args, {}, got)])
 
+    # K3's occluder source on the same face, then on the chest CT's shape
+    # (a seeded uniform volume: the kernel's work does not hang on the data)
+    chest = None
+    for dims in (CHEST_DIMS, DIMS):
+        vol = volume if dims == DIMS else torch.rand(
+            dims, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        fpd = Lt.plan_face_propagation(
+            face, -np.asarray(local_dir, np.float64), dims, axes.weights[0])
+        occ_args = (vol, tf, win, dims, fpd.uvw_offset, fpd.step_size,
+                    clip.center, clip.direction)
+        before = Lt.occluder_opacity.launches
+        got = Lt.occluder_opacity(*occ_args)
+        check(Lt.occluder_opacity.launches == before + 1,
+              "occluder: no launch of K3's occluder source")
+        want = Lt.occluder_opacity_plain(*occ_args)
+        print(f"[kernel] occluder at {dims} (light {dims}), face {face}",
+              flush=True)
+        dev_ms = device_ms(torch, lambda: Lt.occluder_opacity(*occ_args), 10)
+        check(dev_ms[1] == 1, f"occluder took {dev_ms[1]:g} device operations "
+              f"for one call")
+        record("occluder", got, want,
+               cuda_ms(torch, lambda: Lt.occluder_opacity(*occ_args), 10),
+               cuda_ms(torch, lambda: Lt.occluder_opacity_plain(*occ_args), 2),
+               dev_ms, [(occ_args, {}, got)])
+        results["occluder"]["device_ops_per_call"] = dev_ms[1]
+        if dims == CHEST_DIMS:
+            chest = dict(results.pop("occluder"), dims=list(dims))
+        del vol, got, want, occ_args
+    results["occluder"]["chest"] = chest
+
     opacity = Lt.occluder_opacity_volume(volume, tf, win, DIMS, fp.uvw_offset,
                                          fp.step_size, clip.center,
                                          clip.direction)
@@ -2288,9 +2336,9 @@ def main() -> int:
     angle0 = math.atan2(CAM_POS[1], CAM_POS[0])
     cams = [orbit_camera(angle0 + 0.2 * i, radius, CAM_POS[2],
                          fov_degrees=FOV) for i in range(4)]
-    kernels = (K1.composite, K2.row_lerp, K3.windowed_tf_alpha,
+    kernels = (K1.composite, K2.row_lerp, Lt.occluder_opacity,
                K4.propagate_face_scan)
-    names = ("composite", "row_lerp", "tf_alpha", "light_scan")
+    names = ("composite", "row_lerp", "occluder", "light_scan")
     rk = make_renderer()
     for k in kernels:
         k.launches = 0

@@ -51,6 +51,7 @@ SIGNATURES = {
     "tbr_row_lerp": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbr_row_lerp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbr_tf_alpha": [_P, _P, _P, _P, ctypes.c_longlong, _F, _P],
+    "tbr_occluder_alpha": [_P] * 7 + [_F, _P],
     "tbr_tf_alpha_bwd": [_P] * 9 + [ctypes.c_longlong, _F, _I, _P],
     "tbr_light_scan": [_P, _P, _P, ctypes.c_ulonglong] + [_I] * 14
     + [_F, _I, _F, _P, _F, _P],

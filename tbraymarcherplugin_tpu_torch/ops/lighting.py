@@ -3,20 +3,26 @@
 Counterpart of `tbraymarcherplugin_tpu/ops/lighting.py` (the reference's
 `AddDirLightShader.usf`, `ChangeDirLightShader.usf` and
 `LightingShaders.cpp`). The axis math is host numpy, copied from the JAX
-package. Per face, the occluder opacity of every light voxel is computed
-in one pass (constant-offset trilinear resample, then kernel K3,
-`tf_alpha.py`) and the slice scan runs as kernel K4 (`light_scan.py`).
+package. Per face, the occluder opacity of every light voxel is one launch
+of kernel K3's occluder source (`csrc/tf_alpha.cu`): it samples the volume
+at each light voxel's offset center (constant-offset trilinear), applies
+the cube test, the soft clip weight and the windowed TF alpha in
+registers, and writes only the opacity (:func:`occluder_opacity`). The
+slice scan runs as kernel K4 (`light_scan.py`).
 
 Both are the differentiable units (backward kernels K8 and K7), so the
 whole rebuild takes gradients to the volume, the TF table, the window and
 ``light_alpha`` (a 0-d tensor there) as the JAX package's differentiable
-callers do (`tf_impl="pallas_vjp"`, `scan_impl="pallas"`). The resample's
-shifted slices stay slices: their adjoint on the GPU is a copy, where the
-JAX package switches to selection matmuls for the TPU's sake.
+callers do (`tf_impl="pallas_vjp"`, `scan_impl="pallas"`). The volume's
+cotangent is the adjoint of the resample's PyTorch form
+(:func:`_const_shift_trilinear`: shifted slices, whose adjoint on the GPU is
+a copy, where the JAX package switches to selection matmuls for the TPU's
+sake), run only when it is asked for.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -24,10 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import to_device
-from ..utils.profiling import LIGHT_SCAN, OCCLUDER, span
+from ..utils.profiling import LIGHT_SCAN, OCCLUDER, TF_ALPHA_BWD, span
+from . import _kernels, tf_alpha
 from .light_scan import propagate_face_scan_vjp
 from .sampling import VOLUME_DENSITY, clip_soft_alpha_weight, trilinear_sample
-from .tf_alpha import windowed_tf_alpha_vjp
+from .tf_alpha import windowed_tf_alpha_plain
 
 # Per-voxel light deltas at or below this are not written
 # (`AddDirLightShader.usf:123`, `ChangeDirLightShader.usf:152`).
@@ -129,44 +136,78 @@ def plan_face_propagation(face: int, light_pos, light_dims,
                                intensity_times_weight)
 
 
-def _const_shift_trilinear(volume: torch.Tensor, light_dims, uvw_offset):
-    """Trilinear resample of ``volume`` at light-grid centers + a constant
-    UVW offset, for integer volume/light resolution ratios r: the position
-    of light voxel g is g * r + c with a constant c per axis, so every
-    sample has the same fractional weights. Full resolution: 8 shifted
-    slices of an edge-padded volume; downsampling: three separable banded
-    selection matmuls. Edge padding gives clamp-to-edge corners."""
-    vd = tuple(int(d) for d in volume.shape)
+class _Shift(NamedTuple):
+    """The constant-offset resample of a light grid: per axis the
+    volume/light ratio ``r``, the edge pad, the first corner ``i0`` of
+    light voxel 0 in the padded volume and the weight ``frac`` of the
+    second corner (float32)."""
+
+    r: tuple
+    pads: tuple
+    i0: tuple
+    frac: tuple
+
+
+def _const_shift(volume_dims, light_dims, uvw_offset):
+    """The :class:`_Shift` of light voxel centers + ``uvw_offset`` for
+    integer volume/light ratios, else None: the position of light voxel g
+    is g * r + c with a constant c per axis, so every sample has the same
+    fractional weights. The pads hold every offset a face plan gives."""
+    vd = tuple(int(d) for d in volume_dims)
     ld = tuple(int(d) for d in light_dims)
+    if any(v % l for v, l in zip(vd, ld)):
+        return None
     r = tuple(v // l for v, l in zip(vd, ld))
     off = np.asarray(uvw_offset, np.float32)
     pads = tuple(r[a] + 2 + -(-r[a] * ld[a] // min(ld)) for a in range(3))
-    vp = F.pad(volume[None, None],
-               (pads[2], pads[2], pads[1], pads[1], pads[0], pads[0]),
-               mode="replicate")[0, 0]
     i0, frac = [], []
     for a in range(3):
         c = np.float32(0.5 * r[a] - 0.5) + off[a] * np.float32(vd[a])
         f = np.floor(c)
         frac.append(np.float32(c - f))
         i0.append(int(np.clip(int(f) + pads[a], 0, 2 * pads[a] + r[a] - 2)))
-    fx, fy, fz = frac
-    one = np.float32(1.0)
-    gx, gy, gz = (float(one - f) for f in frac)
-    fx, fy, fz = float(fx), float(fy), float(fz)
-    if all(v == 1 for v in r):
-        def corner(dx, dy, dz):
-            return vp[i0[0] + dx:i0[0] + dx + ld[0],
-                      i0[1] + dy:i0[1] + dy + ld[1],
-                      i0[2] + dz:i0[2] + dz + ld[2]]
+    return _Shift(r, pads, tuple(i0), tuple(frac))
 
-        c00 = corner(0, 0, 0) * gz + corner(0, 0, 1) * fz
-        c01 = corner(0, 1, 0) * gz + corner(0, 1, 1) * fz
-        c10 = corner(1, 0, 0) * gz + corner(1, 0, 1) * fz
-        c11 = corner(1, 1, 0) * gz + corner(1, 1, 1) * fz
-        c0 = c00 * gy + c01 * fy
-        c1 = c10 * gy + c11 * fy
-        return c0 * gx + c1 * fx
+
+def _weights(shift: _Shift):
+    """Per axis (1 - frac, frac), float32 values held in Python floats."""
+    one = np.float32(1.0)
+    return ([float(one - f) for f in shift.frac],
+            [float(f) for f in shift.frac])
+
+
+def _trilerp(corner, shift: _Shift):
+    """The constant-weight trilinear lerp of the 8 ``corner(dx, dy, dz)``
+    fields, along z, then y, then x."""
+    (gx, gy, gz), (fx, fy, fz) = _weights(shift)
+    c00 = corner(0, 0, 0) * gz + corner(0, 0, 1) * fz
+    c01 = corner(0, 1, 0) * gz + corner(0, 1, 1) * fz
+    c10 = corner(1, 0, 0) * gz + corner(1, 0, 1) * fz
+    c11 = corner(1, 1, 0) * gz + corner(1, 1, 1) * fz
+    c0 = c00 * gy + c01 * fy
+    c1 = c10 * gy + c11 * fy
+    return c0 * gx + c1 * fx
+
+
+def _const_shift_trilinear(volume: torch.Tensor, light_dims, uvw_offset):
+    """Trilinear resample of ``volume`` at light-grid centers + a constant
+    UVW offset, for integer volume/light resolution ratios r
+    (:func:`_const_shift`). Full resolution: 8 shifted slices of an
+    edge-padded volume; downsampling: three separable banded selection
+    matmuls. Edge padding gives clamp-to-edge corners. Differentiable: the
+    adjoint of the occluder's resample."""
+    ld = tuple(int(d) for d in light_dims)
+    r, pads, i0, _ = shift = _const_shift(volume.shape, ld, uvw_offset)
+    vp = F.pad(volume[None, None],
+               (pads[2], pads[2], pads[1], pads[1], pads[0], pads[0]),
+               mode="replicate")[0, 0]
+    if all(v == 1 for v in r):
+        return _trilerp(lambda dx, dy, dz: vp[i0[0] + dx:i0[0] + dx + ld[0],
+                                              i0[1] + dy:i0[1] + dy + ld[1],
+                                              i0[2] + dz:i0[2] + dz + ld[2]],
+                        shift)
+
+    (gx, gy, gz), (fx, fy, fz) = _weights(shift)
 
     def sel(axis, f, g1):
         g = torch.arange(ld[axis], device=vp.device) * r[axis] + i0[axis]
@@ -179,37 +220,238 @@ def _const_shift_trilinear(volume: torch.Tensor, light_dims, uvw_offset):
     return torch.einsum("iz,ghz->ghi", sel(2, fz, gz), t)
 
 
+def _gather_trilinear(volume: torch.Tensor, light_dims, shift: _Shift):
+    """:func:`_const_shift_trilinear` at ratio 1 as K3's occluder source
+    computes it: the corners gathered at clamped indices (what the edge
+    pad holds), lerped along z, then y, then x."""
+    vd = volume.shape
+
+    def index(a, d, view):
+        i = torch.arange(light_dims[a], device=volume.device)
+        i = (i + (shift.i0[a] - shift.pads[a] + d)).clamp(0, vd[a] - 1)
+        return i.view(view)
+
+    ix = [index(0, d, (-1, 1, 1)) for d in (0, 1)]
+    iy = [index(1, d, (1, -1, 1)) for d in (0, 1)]
+    iz = [index(2, d, (1, 1, -1)) for d in (0, 1)]
+    return _trilerp(lambda dx, dy, dz: volume[ix[dx], iy[dy], iz[dz]], shift)
+
+
+def _light_uvw(light_dims, uvw_offset, device):
+    """(uvw (X, Y, Z, 3), res) of the light voxel centers + the offset."""
+    res = to_device(light_dims, device, torch.float32)
+    grids = torch.meshgrid(
+        *[torch.arange(d, dtype=torch.float32, device=device)
+          for d in light_dims],
+        indexing="ij",
+    )
+    off = to_device(np.asarray(uvw_offset, np.float32), device)
+    return (torch.stack(grids, dim=-1) + 0.5) / res + off, res
+
+
+def _resample(volume, light_dims, uvw_offset):
+    """The occluder's volume samples in differentiable PyTorch."""
+    if _const_shift(volume.shape, light_dims, uvw_offset) is not None:
+        return _const_shift_trilinear(volume, light_dims, uvw_offset)
+    uvw, _ = _light_uvw(light_dims, uvw_offset, volume.device)
+    return trilinear_sample(volume, uvw)
+
+
+def _step(step_size) -> float:
+    return float(np.float32(step_size) * np.float32(VOLUME_DENSITY))
+
+
+def _composed(volume, tf_table, windowing_vec4, light_dims, uvw_offset,
+              step_size, clip_center, clip_direction, alpha, parts):
+    """The occluder field in PyTorch operations, the windowed TF alpha
+    through ``alpha``; see :func:`occluder_opacity`."""
+    dev = volume.device
+    ld = tuple(int(d) for d in light_dims)
+    uvw, res = _light_uvw(ld, uvw_offset, dev)
+    weight = clip_soft_alpha_weight(uvw, clip_center, clip_direction, res)
+    inside = ((uvw >= 0.0) & (uvw <= 1.0)).all(-1)
+    shift = _const_shift(volume.shape, ld, uvw_offset)
+    if shift is None:
+        value = trilinear_sample(volume, uvw)
+    elif all(v == 1 for v in shift.r):
+        value = _gather_trilinear(volume, ld, shift)
+    else:
+        value = _const_shift_trilinear(volume, ld, uvw_offset)
+    opacity = alpha(value, tf_table, windowing_vec4, _step(step_size))
+    keep = inside & (weight > 0.0)
+    zero = torch.zeros_like(opacity)
+    out = torch.where(keep, opacity * weight, zero)
+    return (out, value, torch.where(keep, weight, zero)) if parts else out
+
+
+def occluder_opacity_plain(volume, tf_table, windowing_vec4, light_dims,
+                           uvw_offset, step_size, clip_center,
+                           clip_direction, parts: bool = False):
+    """:func:`occluder_opacity` in plain PyTorch, one operation per step of
+    the kernel. The sample: at ratio 1 the kernel's clamped corners and
+    lerp order; at integer ratios above 1 the selection matmuls
+    (:func:`_const_shift_trilinear`), which the kernel's stride-r walk
+    meets within an ulp; at other ratios one trilinear fetch per voxel
+    (`trilinear_sample`). The clip weight is
+    `sampling.clip_soft_alpha_weight`, whose distance and norm the kernel
+    sums in its own order (an ulp of the distance apart)."""
+    return _composed(volume, tf_table, windowing_vec4, light_dims,
+                     uvw_offset, step_size, clip_center, clip_direction,
+                     windowed_tf_alpha_plain, parts)
+
+
+def _on(x, device) -> bool:
+    return isinstance(x, torch.Tensor) and x.device == device
+
+
+def _floats(x, n: int) -> list:
+    """``x`` (numbers, an array or a tensor) as ``n`` float32 values."""
+    return torch.as_tensor(x, dtype=torch.float32).detach().cpu().reshape(
+        n).tolist()
+
+
+class _OccluderGeometry(ctypes.Structure):
+    """One face's geometry as K3's occluder source reads it (`TbrOccluder`
+    in csrc/tf_alpha.cu)."""
+
+    _fields_ = [("vd", ctypes.c_int * 3), ("ld", ctypes.c_int * 3),
+                ("base", ctypes.c_int * 3), ("r", ctypes.c_int * 3),
+                ("f", ctypes.c_float * 3), ("g", ctypes.c_float * 3),
+                ("res", ctypes.c_float * 3), ("off", ctypes.c_float * 3),
+                ("clip", ctypes.c_float * 6), ("win", ctypes.c_float * 4),
+                ("clip_dev", ctypes.c_void_p),
+                ("x_first", ctypes.c_int)]
+
+
+def occluder_opacity(volume, tf_table, windowing_vec4, light_dims,
+                     uvw_offset, step_size, clip_center, clip_direction,
+                     parts: bool = False):
+    """Occluder opacity of one face (`AddDirLightShader.usf:84-114`): the
+    volume sampled at each light voxel center offset toward the light,
+    windowed TF alpha, times the soft clip weight; zero where the offset
+    sample leaves [0, 1]^3. Returns a ``light_dims`` tensor, with
+    ``parts`` also the sampled values and ``keep ? weight : 0`` (the
+    backward's inputs).
+
+    For CUDA tensors at integer volume/light ratios one launch of K3's
+    occluder source, which reads the volume and writes the opacity (and
+    the parts when asked for); the geometry, and a window or clip plane
+    given as host data (a CPU tensor too), go by value, and a window or
+    clip plane given as tensors on the card is read there, so nothing is
+    copied between host and device. At other ratios on the card the
+    PyTorch composition with K3 on its values. For CPU tensors
+    :func:`occluder_opacity_plain`."""
+    if volume.device.type == "cpu":
+        return occluder_opacity_plain(volume, tf_table, windowing_vec4,
+                                      light_dims, uvw_offset, step_size,
+                                      clip_center, clip_direction, parts)
+    ld = tuple(int(d) for d in light_dims)
+    shift = _const_shift(volume.shape, ld, uvw_offset)
+    if shift is None:
+        return _composed(volume, tf_table, windowing_vec4, ld, uvw_offset,
+                         step_size, clip_center, clip_direction,
+                         tf_alpha.windowed_tf_alpha, parts)
+    dev = volume.device
+    volume = volume.contiguous()
+    tf_table = tf_table.contiguous()
+    _kernels.check(volume, "volume", torch.float32, dev)
+    _kernels.check(tf_table, "tf_table", torch.float32, dev)
+    if tuple(tf_table.shape) != (256, 4):
+        raise ValueError(f"tf_table must be (256, 4), got {tf_table.shape}")
+    g, f = _weights(shift)
+    geo = _OccluderGeometry(
+        vd=(ctypes.c_int * 3)(*volume.shape), ld=(ctypes.c_int * 3)(*ld),
+        base=(ctypes.c_int * 3)(*(i - p for i, p in zip(shift.i0,
+                                                        shift.pads))),
+        r=(ctypes.c_int * 3)(*shift.r),
+        f=(ctypes.c_float * 3)(*f), g=(ctypes.c_float * 3)(*g),
+        res=(ctypes.c_float * 3)(*ld),
+        off=(ctypes.c_float * 3)(*np.asarray(uvw_offset, np.float32)),
+        x_first=int(any(v != 1 for v in shift.r)))
+    # host data goes by value: an upload would wait for the queued work
+    win = clip = None
+    if _on(windowing_vec4, dev):
+        win = _kernels.window_tensor(windowing_vec4, dev).contiguous()
+    else:
+        geo.win[:] = _floats(windowing_vec4, 4)
+    if _on(clip_center, dev) and _on(clip_direction, dev):
+        clip = torch.cat([c.to(torch.float32).reshape(3)
+                          for c in (clip_center, clip_direction)])
+        geo.clip_dev = clip.data_ptr()
+    else:
+        geo.clip[:] = _floats(clip_center, 3) + _floats(clip_direction, 3)
+    out = torch.empty(ld, dtype=torch.float32, device=dev)
+    values = torch.empty_like(out) if parts else None
+    keep_weight = torch.empty_like(out) if parts else None
+    _kernels.launch(
+        "tbr_occluder_alpha", volume.data_ptr(), tf_table.data_ptr(),
+        None if win is None else win.data_ptr(), ctypes.addressof(geo),
+        out.data_ptr(),
+        values.data_ptr() if parts else None,
+        keep_weight.data_ptr() if parts else None, _step(step_size),
+        _kernels.stream_of(volume),
+    )
+    occluder_opacity.launches += 1
+    return (out, values, keep_weight) if parts else out
+
+
+occluder_opacity.launches = 0
+
+
+class _OccluderOpacity(torch.autograd.Function):
+    """Forward :func:`occluder_opacity` (K3's occluder source), backward
+    `tf_alpha.windowed_tf_alpha_bwd` (K8) on the sampled values with the
+    cotangent times ``keep ? weight : 0``, both looked up at call time; the
+    volume's cotangent, only when it is asked for, is the adjoint of
+    :func:`_resample`. The parts are kept only when a gradient is asked
+    for."""
+
+    @staticmethod
+    def forward(ctx, volume, tf_table, windowing_vec4, face):
+        parts = any(ctx.needs_input_grad[:3])
+        got = occluder_opacity(volume, tf_table, windowing_vec4, *face,
+                               parts=parts)
+        if not parts:
+            return got
+        out, values, keep_weight = got
+        ctx.face = face
+        win = windowing_vec4 if isinstance(windowing_vec4,
+                                           torch.Tensor) else None
+        ctx.host_window = windowing_vec4 if win is None else None
+        ctx.save_for_backward(volume, tf_table, win, values, keep_weight)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        volume, tf_table, win, values, keep_weight = ctx.saved_tensors
+        if win is None:
+            win = ctx.host_window
+        light_dims, uvw_offset, step_size = ctx.face[:3]
+        with span(TF_ALPHA_BWD):
+            dval, dtf, dwin = tf_alpha.windowed_tf_alpha_bwd(
+                values, tf_table, win, _step(step_size), g * keep_weight)
+        dvol = None
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                v = volume.detach().requires_grad_()
+                (dvol,) = torch.autograd.grad(
+                    _resample(v, light_dims, uvw_offset), v, dval)
+        # a window tensor takes its gradient on its own device
+        dwin = dwin.to(win.device) if ctx.needs_input_grad[2] else None
+        return dvol, dtf.to(tf_table.dtype), dwin, None
+
+
 def occluder_opacity_volume(volume, tf_table, windowing_vec4, light_dims,
                             uvw_offset, step_size, clip_center,
                             clip_direction):
-    """Per-voxel occluder opacity of one face (`AddDirLightShader.usf:84-114`):
-    the volume sampled at each light voxel center offset toward the light,
-    windowed TF alpha (kernels K3/K8), times the soft clip weight; zero
-    where the offset sample leaves [0, 1]^3. Returns a ``light_dims``
-    tensor."""
+    """Differentiable :func:`occluder_opacity`: gradients flow to the
+    volume, the TF table's alpha column and the window (kernel K8 and the
+    resample's adjoint; a window given as a tensor takes one). Returns a
+    ``light_dims`` tensor."""
     with span(OCCLUDER):
-        dev = volume.device
-        res = to_device(light_dims, dev, torch.float32)
-        grids = torch.meshgrid(
-            *[torch.arange(d, dtype=torch.float32, device=dev)
-              for d in light_dims],
-            indexing="ij",
-        )
-        off = to_device(np.asarray(uvw_offset, np.float32), dev)
-        uvw = (torch.stack(grids, dim=-1) + 0.5) / res + off
-        alpha_weight = clip_soft_alpha_weight(uvw, clip_center,
-                                              clip_direction, res)
-        inside = ((uvw >= 0.0) & (uvw <= 1.0)).all(-1)
-        vd = tuple(volume.shape)
-        if all(v % l == 0 for v, l in zip(vd, light_dims)):
-            value = _const_shift_trilinear(volume, light_dims, uvw_offset)
-        else:
-            value = trilinear_sample(volume, uvw)
-        step = float(np.float32(step_size) * np.float32(VOLUME_DENSITY))
-        opacity = windowed_tf_alpha_vjp(value, tf_table, windowing_vec4, step)
-        keep = inside & (alpha_weight > 0.0)
-        return torch.where(keep, opacity * alpha_weight,
-                           torch.zeros_like(opacity))
+        face = (tuple(int(d) for d in light_dims), uvw_offset, step_size,
+                clip_center, clip_direction)
+        return _OccluderOpacity.apply(volume, tf_table, windowing_vec4, face)
 
 
 def _propagate_one_face(volume, tf_table, windowing_vec4, clip_center,

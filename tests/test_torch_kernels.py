@@ -171,6 +171,7 @@ def test_renderer_mode_frames_match_plain(cuda, mode):
     with _plain((PC, "composite", PC.composite_plain),
                 (PW, "row_lerp", PW.row_lerp_plain),
                 (PK3, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
+                (PL, "occluder_opacity", PL.occluder_opacity_plain),
                 (PK4, "propagate_face_scan", PK4.propagate_face_scan_plain)):
         want = frame()
     torch.cuda.synchronize()
@@ -342,6 +343,7 @@ def test_add_dir_light_kernels_match_plain(cuda, light_dims):
             clip.center, clip.direction, [0.3, 0.1, -0.95], 1.0)
     got = PL.add_dir_light(*args)
     with _plain((PK3, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
+                (PL, "occluder_opacity", PL.occluder_opacity_plain),
                 (PK4, "propagate_face_scan", PK4.propagate_face_scan_plain)):
         want = PL.add_dir_light(*args)
     torch.cuda.synchronize()
@@ -478,7 +480,7 @@ def test_scan_bwd_kernel_takes_large_faces(cuda, gen, shape, off, route):
 ALL_PLAIN = (
     (PC, "composite", PC.composite_plain),
     (PW, "row_lerp", PW.row_lerp_plain),
-    (PK3, "windowed_tf_alpha", PK3.windowed_tf_alpha_plain),
+    (PL, "occluder_opacity", PL.occluder_opacity_plain),
     (PK4, "propagate_face_scan", PK4.propagate_face_scan_plain),
     (PK5, "composite_bwd", PK5.composite_bwd_plain),
     (PW, "row_lerp_bwd", PW.row_lerp_bwd_plain),
