@@ -4,9 +4,11 @@ the comparison with the reference, and the result's JSON object.
 Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json``, its configuration in ``configs/<config>.json``, its
 traffic mix in ``traffic/<traffic>.json`` (read by `generator.py`), the
-limits of its comparison in ``limits/<cell>.json`` and each per-layer
+limits of its comparison in ``limits/<cell>.json``, each per-layer
 metric's reader in ``metrics/<metric>.py`` (or, for a name ``<base>.<part>``
-without a file of its own, ``metrics/<base>.py``).
+without a file of its own, ``metrics/<base>.py``), the configuration's
+volume in ``volumes/<volume>.py`` and its reference in
+``reference/<reference>.py`` (default ``frame``).
 
 A frames cell renders one frame per iteration through the viewer's
 `Renderer` (the setters of the window, the clip plane and the lights,
@@ -14,6 +16,10 @@ then ``render``, then ``torch.cuda.synchronize()``); a fit cell takes one optimi
 iteration. The window runs iterations until ``seconds`` have passed; a
 traced run instead runs the mix's ``trace_iterations`` under
 `torch.profiler`.
+
+A frames cell on several cards runs this in one process per card, each
+with its :class:`ranks.Ranks` (`ranks.py`: the timing across cards and
+how the ranks' results are joined).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import contextlib
 import gc
 import importlib.util
 import json
+import math
 import statistics
 import time
 from pathlib import Path
@@ -29,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import check, generator, phantom, system
+from . import check, generator, system, volumes
 from . import trace as tracing
 from .reference import common as RC
 from .reference import fit as RFIT
@@ -55,6 +62,16 @@ def load_config(name: str) -> dict:
 
 def load_traffic(name: str) -> dict:
     return _load_json(HERE / "traffic" / f"{name}.json")
+
+
+def load_reference(config: dict):
+    """The reference module the configuration names (``reference``,
+    ``reference/<name>.py``; default ``frame``): its ``illumination``,
+    ``plan`` and ``frame`` are what the check calls."""
+    name = config.get("reference", "frame")
+    if not (HERE / "reference" / f"{name}.py").exists():
+        raise KeyError(f"no reference {name!r}: rmbench/reference/{name}.py")
+    return importlib.import_module(f"{__package__}.reference.{name}")
 
 
 def metric_file(name: str) -> Path:
@@ -194,13 +211,18 @@ class Run:
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
-             t0: float, control: bool = False) -> dict:
+             t0: float, control: bool = False, ranks=None) -> dict | None:
     """One run; ``t0`` is the process's start on the host clock.
     ``control`` (`calibrate.py`, never the benchmark's runs) also reads
     the lower-precision control's numbers on the same work, under
-    ``result["numbers"]``."""
+    ``result["numbers"]``. ``ranks``: this process's `ranks.Ranks` in a
+    run over several cards (frames cells only), where rank 0 returns the
+    result and the others None."""
     if cell.gen.loop == "frames":
-        return _run_frames(cell, seed, seconds, traced, device, t0, control)
+        return _run_frames(cell, seed, seconds, traced, device, t0, control,
+                           ranks)
+    if ranks is not None:
+        raise ValueError("a fit cell runs on one card")
     return _run_fit(cell, seed, seconds, traced, device, t0, control)
 
 
@@ -225,28 +247,43 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def _inputs(config: dict, seed: int, device):
-    """The volume the configuration names (`phantom.VOLUMES`), made on
-    ``device`` from the seed, and its TF table."""
-    volume = phantom.VOLUMES[config["volume"]](config["dims"], seed, device)
+def _inputs(config: dict, seed: int, device, ranks=None):
+    """The volume the configuration names (``volumes/<volume>.py``), made
+    on ``device`` from the seed (a sharded configuration's rank: its Z
+    slab), and its TF table."""
+    z = None
+    if ranks is not None and config.get("sharding"):
+        z = volumes.slab(config["dims"], ranks.rank, ranks.world)
+    volume = volumes.load(config["volume"]).make(config["dims"], seed,
+                                                 device, z=z)
     table = RC.tf_table(config["tf"], device)
     return volume, table
 
 
-def _run_frames(cell, seed, seconds, traced, device, t0, control=False):
+def _run_frames(cell, seed, seconds, traced, device, t0, control=False,
+                ranks=None):
     run = Run(cell, device)
     cfg, gen = cell.config, cell.gen
+    sharded = ranks is not None and bool(cfg.get("sharding"))
     compile_s = system.load_kernels(device)
-    volume, table = _inputs(cfg, seed, device)
-    viewer = system.Viewer(cfg, volume, table, device)
+    volume, table = _inputs(cfg, seed, device, ranks)
+    viewer = system.Viewer(cfg, volume, table, device,
+                           mesh=None if ranks is None else ranks.mesh)
     renders = 0
     for i in cell.traffic["warmup_iterations"]:
         st = gen.state(i)
         viewer.apply(st)
         viewer.render(st)
         renders += 1
+        if ranks is not None:
+            sync(device)
+            ranks.end_iteration(time.perf_counter())
     sync(device)
+    if ranks is not None:
+        ranks.barrier()
     setup_s = time.perf_counter() - t0
+    # a sharded configuration's frame is whole on rank 0 alone
+    keep = not sharded or ranks.rank == 0
     samples = Samples(int(cell.traffic["samples"]),
                       np.random.default_rng(seed))
     lat = []
@@ -266,42 +303,88 @@ def _run_frames(cell, seed, seconds, traced, device, t0, control=False):
         with rf("rmbench.sync"):
             sync(device)
         td = time.perf_counter()
+        if ranks is not None:
+            with rf("rmbench.collective"):
+                td = ranks.end_iteration(td)
         lat.append(td - ta)
         run.host_s.append(tc - tb)
-        samples.offer(i, renders, img, rebuilt)
+        if keep:
+            samples.offer(i, renders, img, rebuilt)
         run.rebuilds += rebuilt
         renders += 1
         return td
 
     window_s = _window(run, iteration, seconds, traced,
-                       int(cell.traffic["trace_iterations"]), device)
+                       int(cell.traffic["trace_iterations"]), device, ranks)
     run.iterations = len(lat)
     peak = _peak(device)
     del viewer
     _free(device)
 
+    others = []
+    if ranks is not None:
+        everyone = ranks.gather({
+            "iterations": run.iterations, "peak": peak,
+            "busy_s": run.trace.busy_s if traced else None,
+            "frames": ([(i, r, img.cpu()) for i, r, img in samples.items()]
+                       if keep and ranks.rank else [])})
+        if ranks.rank != 0:
+            return None
+        others = [e["frames"] for e in everyone[1:] if e["frames"]]
+        if sharded:  # the reference makes the volume itself, in blocks
+            del volume
+            _free(device)
+            volume = volumes.VolumeSource(cfg["volume"], tuple(cfg["dims"]),
+                                          int(seed))
     numbers, failed = _check_frames(run, cell, volume, table, samples,
-                                    traced, control)
-    return _result(cell, run, setup_s, lat, numbers, failed, peak,
-                   compile_s, traced, window_s)
+                                    traced, control, others)
+    out = _result(cell, run, setup_s, lat, numbers, failed, peak,
+                  compile_s, traced, window_s)
+    if ranks is not None:
+        _join_ranks(out, ranks, everyone, traced)
+    return out
 
 
-def _window(run, iteration, seconds, traced, trace_iterations, device):
+def _join_ranks(out: dict, ranks, everyone: list, traced: bool) -> None:
+    """Rank 0's result over every rank: the fullest card's peak (and each
+    card's), the busy seconds averaged over the cards, and in the run's
+    detail each rank's iterations and the mean end-of-iteration
+    collective."""
+    dev = out["device"]
+    dev["count"] = ranks.world
+    dev["memory_peak_bytes_by_rank"] = [e["peak"] for e in everyone]
+    dev["memory_peak_bytes"] = max(dev["memory_peak_bytes_by_rank"])
+    if traced and "busy_s" in dev:
+        dev["busy_s_by_rank"] = [e["busy_s"] for e in everyone]
+        dev["busy_s"] = sum(dev["busy_s_by_rank"]) / ranks.world
+    col = ranks.collective_s
+    out["setup_detail"].update({
+        "iterations_by_rank": [e["iterations"] for e in everyone],
+        "collective_ms_mean": sum(col) / len(col) * 1e3 if col else None})
+
+
+def _window(run, iteration, seconds, traced, trace_iterations, device,
+            ranks=None):
     """The measured window's seconds: ``iteration(i, ranges)`` (which
-    returns its end on the host clock) until ``seconds`` have passed; or,
-    traced, ``trace_iterations`` of them under the profiler, each in an
+    returns its end on the host clock) until ``seconds`` have passed (on
+    several cards, until rank 0's stop flag comes back); or, traced,
+    ``trace_iterations`` of them under the profiler, each in an
     ``rmbench.iter.<i>`` range, the trace read into ``run.trace``."""
     if not traced:
-        start, i = time.perf_counter(), 0
+        start = (time.perf_counter() if ranks is None
+                 else ranks.open_window(seconds))
+        i = 0
         while True:
             end = iteration(i, lambda name: contextlib.nullcontext())
             i += 1
-            if end - start >= seconds:
+            if (end - start >= seconds if ranks is None else ranks.stop):
                 return end - start
     from torch.profiler import record_function
 
     with _profiler(device) as prof:
         start = time.perf_counter()
+        if ranks is not None:
+            ranks.open_window(math.inf)
         for i in range(trace_iterations):
             with record_function(f"{tracing.ITER_PREFIX}{i}"):
                 end = iteration(i, record_function)
@@ -329,17 +412,24 @@ def _frame_numbers(img, ref, ref_stated) -> dict:
     return out
 
 
-def _check_frames(run, cell, volume, table, samples, traced, control=False):
+def _check_frames(run, cell, volume, table, samples, traced, control=False,
+                  others=()):
     """The reference's frames of the sampled iterations: the compared
     numbers (each the worst over the sampled frames), and in a traced run
     the work counts the rooflines read; with ``control`` also the
-    control's numbers on the same frames (each the least)."""
+    control's numbers on the same frames (each the least). ``others``:
+    the other ranks' sampled frames of the same iterations, each held to
+    the same reference; a frame fails where any rank's fails. ``volume``
+    is a tensor, or for a sharded configuration a
+    `volumes.VolumeSource` that the reference makes blocks from."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, gen = cell.config, cell.gen
+    ref_mod = load_reference(cfg)
     limits = check.load_limits(cell.name)
     planes = getattr(torch, cfg["precision"]["frame_planes"])
     per_frame, controls, lights = [], [], {}
+    other_imgs = [{i: img for i, _, img in frames} for frames in others]
     with torch.no_grad():
         for i, render_index, img in samples.items():
             st = gen.state(i)
@@ -348,21 +438,24 @@ def _check_frames(run, cell, volume, table, samples, traced, control=False):
             key = (st.window_center, st.window_width, st.clip, st.lights)
             if key not in lights:
                 lights.clear()
-                lights[key] = RF.illumination(scene)
+                lights[key] = ref_mod.illumination(scene)
             stats = {} if traced else None
             cam = reference_camera(st)
-            p = RF.plan(scene, cam)
-            ref = RF.frame(scene, cam, lights[key], render_index,
-                           stats=stats)
+            p = ref_mod.plan(scene, cam)
+            ref = ref_mod.frame(scene, cam, lights[key], render_index,
+                                stats=stats)
             stated = None
             if p is not None:
-                stated = RF.frame(scene, cam, lights[key], render_index,
-                                  plane_dtype=planes)
-            per_frame.append(_frame_numbers(img, ref, stated))
+                stated = ref_mod.frame(scene, cam, lights[key], render_index,
+                                       plane_dtype=planes)
+            # one entry a frame: the worst of every rank's numbers
+            nums = [_frame_numbers(x.to(ref.device), ref, stated)
+                    for x in [img] + [o[i] for o in other_imgs]]
+            per_frame.append({k: max(n[k] for n in nums) for k in nums[0]})
             if control:
-                low = RF.frame(scene, cam, lights[key], render_index,
-                               plane_dtype=CONTROL_PLANES,
-                               storage_dtype=CONTROL_MARCH_STORAGE)
+                low = ref_mod.frame(scene, cam, lights[key], render_index,
+                                    plane_dtype=CONTROL_PLANES,
+                                    storage_dtype=CONTROL_MARCH_STORAGE)
                 controls.append(_frame_numbers(low, ref, stated))
                 del low
             if traced:

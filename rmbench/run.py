@@ -1,5 +1,6 @@
-"""Run one cell of the port's benchmark once, on the card this process
-starts on.
+"""Run one cell of the port's benchmark once: on the card this process
+starts on, or for a cell of n > 1 chips in n worker processes, one per
+card (`ranks.py`).
 
     python3 rmbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
@@ -13,8 +14,13 @@ metrics, or with ``--trace 1`` its per-layer metrics), ``device``, with
 with its limit, also printed as the last lines of standard error.
 
 Exits with code 2, printing no result, when PyTorch finds no CUDA card
-or fewer than the cell asks for, and with code 3 when ``jax``,
-``jaxlib``, ``flax`` or the JAX package is loaded once the run is over.
+or fewer than the cell asks for, with code 3 when ``jax``, ``jaxlib``,
+``flax`` or the JAX package is loaded once the run is over, and with
+code 4 when a cell over several cards cannot run on them or a worker
+fails (a worker that finds JAX loaded fails with 3); the other workers
+are then ended.
+
+``run.py --worker <dir> <rank>`` is one such worker, started by the run.
 """
 
 from __future__ import annotations
@@ -72,6 +78,9 @@ def parse(argv=None):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--worker"]:
+        return worker(Path(argv[1]), int(argv[2]))
     args = parse(argv)
     import torch
 
@@ -85,9 +94,16 @@ def main(argv=None) -> int:
         print(f"rmbench: the cell needs {chips} CUDA card(s); PyTorch finds "
               f"{found}", file=sys.stderr)
         return 2
+    if chips > 1:
+        return run_spawned(bench, args, chips, "cuda")
     result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                               torch.device("cuda", 0), T0)
     result["device"]["card"] = power_limit()
+    return emit(result)
+
+
+def emit(result: dict) -> int:
+    """Print the result (0), or nothing where JAX is loaded here (3)."""
     found = banned_modules()
     if found:
         print(f"rmbench: JAX or the JAX package is loaded: {found}",
@@ -98,6 +114,63 @@ def main(argv=None) -> int:
     sys.stdout.flush()
     print(json.dumps(line))
     return 0
+
+
+def run_spawned(bench: dict, args, world: int, device: str, config=None,
+                traffic=None, command=None) -> int:
+    """The cell ``args.workload`` in ``world`` worker processes
+    (`ranks.spawn`), on ``cuda:0`` to ``cuda:<world-1>`` or, for tests, on
+    the CPU; prints rank 0's result once every worker has exited with 0.
+    ``config``, ``traffic`` (tests) replace the cell's own; ``command``
+    replaces the worker's program."""
+    from rmbench import harness, ranks
+
+    cell = harness.Cell(bench, args.workload, config, traffic)
+    try:
+        ranks.check_cell(cell, world)
+    except ValueError as e:
+        print(f"rmbench: {e}", file=sys.stderr)
+        return ranks.FAILED
+    spec = ranks.spec(bench, args.workload, args.seed, args.seconds,
+                      bool(args.trace), world, device, T0, config, traffic)
+    rc, result, _ = ranks.spawn(spec, command)
+    if rc != 0:
+        return rc
+    if device == "cuda":
+        result["device"]["card"] = power_limit()
+    return emit(result)
+
+
+def worker(rundir: Path, rank: int) -> int:
+    """Rank ``rank`` of a run that `run_spawned` started: the cell on
+    ``cuda:<rank>`` (or the CPU), rank 0 writing the result; 3 where JAX
+    is loaded here once the window has closed."""
+    import torch
+
+    from rmbench import harness, ranks
+
+    spec = json.loads((rundir / "spec.json").read_text())
+    ranks.die_with_parent(spec["parent"])
+    world = int(spec["world"])
+    device = (torch.device("cuda", rank) if spec["device"] == "cuda"
+              else torch.device("cpu"))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    # the host's cores shared out between the ranks
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    cell = harness.Cell(spec["bench"], spec["workload"], spec["config"],
+                        spec["traffic"])
+    me = ranks.Ranks(rank, world, device, rundir)
+    result = harness.run_cell(cell, spec["seed"], spec["seconds"],
+                              spec["trace"], device, spec["t0"], ranks=me)
+    found = banned_modules()
+    if found:
+        print(f"rmbench: rank {rank}: JAX or the JAX package is loaded: "
+              f"{found}", file=sys.stderr)
+    elif rank == 0:
+        (rundir / "result.json").write_text(json.dumps(result))
+    me.close()
+    return 3 if found else 0
 
 
 def finish(result: dict):

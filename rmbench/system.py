@@ -4,11 +4,16 @@ the port, and it imports it only when a run asks for it.
 
 - :func:`load_kernels` builds (first run in a checkout) and loads the
   port's CUDA kernels into its own ``_build/`` directory.
+- :func:`join` joins a run over several cards to the port's process
+  group (`parallel.distributed.initialize_multihost`) and makes its mesh
+  (`parallel.mesh.make_mesh`, one ``"slab"`` axis over every rank).
 - :class:`Viewer` is a viewer's `Renderer` with the configuration's
   volume, TF, window, lights and renderer settings, applying an
   iteration's window, clip plane and lights through the renderer's
   setters. It refuses to run where the renderer stores its volume, light
-  volume or planes in another type than the configuration states.
+  volume or planes in another type than the configuration states. For a
+  configuration with ``sharding`` it is built from the rank's Z slab with
+  the mesh and the whole volume's dims (``mesh=``, ``global_dims=``).
 - :class:`FitStep` is the inverse-rendering step: `render_lit_scene`,
   the image loss plus the TF smoothness, ``backward()`` and an Adam step.
 """
@@ -29,6 +34,17 @@ def load_kernels(device) -> float:
     return compile_s
 
 
+def join(world: int, rank: int, address: str, device):
+    """Join the process group of ``world`` ranks at ``address`` (an init
+    URL) as ``rank``, NCCL on the card and gloo on the CPU; the mesh of
+    one ``"slab"`` axis over them."""
+    from tbraymarcherplugin_tpu_torch.parallel import distributed, mesh
+
+    distributed.initialize_multihost(address, world, rank,
+                                     device=torch.device(device).type)
+    return mesh.make_mesh({"slab": world})
+
+
 def _camera(state):
     from tbraymarcherplugin_tpu_torch.scene import Camera
 
@@ -38,10 +54,12 @@ def _camera(state):
 
 class Viewer:
     """A `Renderer` set up as the configuration says (``config["renderer"]``
-    with the mix's options already over it)."""
+    with the mix's options already over it). With ``sharding`` in the
+    configuration, ``volume`` is the rank's Z slab and ``mesh`` the run's
+    mesh; ``render`` then returns the whole frame on rank 0."""
 
     def __init__(self, config: dict, volume: torch.Tensor,
-                 table: torch.Tensor, device):
+                 table: torch.Tensor, device, mesh=None):
         from tbraymarcherplugin_tpu_torch.renderer import (Renderer,
                                                            RendererConfig)
         from tbraymarcherplugin_tpu_torch.utils.volume_info import (
@@ -54,6 +72,9 @@ class Viewer:
                               is_normalized=True, min_value=0.0,
                               max_value=1.0)
         r = config["renderer"]
+        sharded = {}
+        if config.get("sharding"):
+            sharded = dict(mesh=mesh, global_dims=tuple(config["dims"]))
         self.renderer = Renderer(
             volume, info=info, tf_table=table,
             windowing=WindowingParameters(*config["window"]),
@@ -64,7 +85,7 @@ class Viewer:
                 light_volume_32bit=r["light_volume_32bit"],
                 light_volume_half_resolution=r[
                     "light_volume_half_resolution"]),
-            device=device)
+            device=device, **sharded)
         self.lights = [(tuple(li["direction"]), float(li["intensity"]))
                        for li in config["lights"]]
         for i, (d, intensity) in enumerate(self.lights):

@@ -1,6 +1,6 @@
-"""The program's spans in a trace (`spans.py`), and the trace reduction's
-attribution of device time under them (`trace.py`), on hand-made Chrome
-trace events."""
+"""The program's spans in a trace (`spans.py`), the trace reduction's
+attribution of device time under them (`trace.py`) and the spans it keeps
+for readers (``Trace.spans``), on hand-made Chrome trace events."""
 
 import pytest
 
@@ -112,3 +112,19 @@ def test_an_idle_gap_is_named_after_the_innermost_span():
     # [0, 500): the midpoint 250 lies in the occluder's range
     assert gaps["tbr.occluder"] == pytest.approx(500e-6)
     assert "rmbench.render" not in gaps
+
+
+def test_the_trace_keeps_the_spans_for_readers():
+    tr = tracing.reduce_events(_events(), 2000e-6)
+    sp = S.collect(_events())
+    assert isinstance(tr.spans, S.Spans)
+    assert tr.spans == sp
+    for names in ({"tbr.occluder"}, {"tbr.lighting"}, {"tbr.plan"},
+                  {"tbr.plan", "tbr.tile_bounds"}, {"tbr.upload"}):
+        for its in (None, {0}, {1}):
+            assert tr.spans.count(names, its) == sp.count(names, its)
+            assert tr.spans.host_s(names, its) == sp.host_s(names, its)
+            assert tr.spans.launched_device_s(names, its) == \
+                sp.launched_device_s(names, its)
+    assert tr.spans.launched_device_s({"tbr.occluder"}) == pytest.approx(
+        50e-6)

@@ -167,6 +167,34 @@ def test_trace_reduction():
     assert sum(gaps.values()) == pytest.approx(150e-6)  # 200 - busy
 
 
+def test_the_harness_collective_is_not_the_programs_work():
+    """Device operations launched in the harness's ``rmbench.collective``
+    range (the stop flag over several cards) count neither as operations
+    nor as busy time; the host's time in it still names idle gaps."""
+    events = [
+        _ev("user_annotation", "rmbench.iter.0", 0, 100),
+        _ev("user_annotation", "rmbench.render", 0, 40),
+        _ev("cuda_runtime", "cudaLaunchKernel", 10, 1, correlation=1),
+        _ev("kernel", "void composite_kernel<float, 0>(float const*)", 15,
+            20, correlation=1),
+        _ev("user_annotation", tracing.HARNESS_RANGE, 50, 50),
+        _ev("cpu_op", "aten::fill_", 51, 2, **{"External id": 3}),
+        _ev("cuda_runtime", "cudaLaunchKernel", 52, 1, correlation=2),
+        _ev("kernel", "void fill_kernel(float*)", 55, 1, correlation=2,
+            **{"External id": 3}),
+        _ev("cuda_driver", "cuLaunchKernelEx", 56, 1, correlation=3),
+        _ev("kernel", "ncclDevKernel_AllReduce_Sum_f32_RING_LL", 57, 40,
+            correlation=3),
+    ]
+    tr = tracing.reduce_events(events, 100e-6)
+    assert [op.name for op in tr.ops] == ["composite_kernel"]
+    assert tr.busy_s == pytest.approx(20e-6)
+    gaps = dict(tr.top_gaps())
+    # [35, 100]: its midpoint lies in the collective
+    assert gaps[tracing.HARNESS_RANGE] == pytest.approx(65e-6)
+    assert gaps["rmbench.render"] == pytest.approx(15e-6)  # [0, 15]
+
+
 def test_bounds():
     # bytes-bound and operations-bound arms
     assert bounds.bound_s(3.35e12, 0) == pytest.approx(1.0)

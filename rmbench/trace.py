@@ -9,8 +9,14 @@ memset intervals; a device operation that the profiler links to an
 through ctypes, so linked to no operator or to the autograd node that
 launched them) keep their kernel names. Added here:
 each device operation is given the iteration whose host range
-(``rmbench.iter``) launched it, and each idle gap between device
-operations is named after what the host was doing in it.
+(``rmbench.iter``) launched it, each idle gap between device
+operations is named after what the host was doing in it, the
+program's own spans are kept (`spans.py`) for the metrics that read them,
+and the device operations that the harness itself launches in its
+``rmbench.collective`` range (the stop flag's all-reduce of a run over
+several cards, whose kernel spins while it waits for the slowest card)
+are left out of the operations and of the busy time: they are not the
+program's work.
 
 The trace is written to a temporary directory under ``TMPDIR`` and
 deleted once read.
@@ -29,6 +35,7 @@ import tempfile
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 ITER_PREFIX = "rmbench.iter."
+HARNESS_RANGE = "rmbench.collective"
 
 
 def short_name(name: str, n: int = 72) -> str:
@@ -73,6 +80,7 @@ class Trace:
     busy_s: float
     window_s: float
     gaps: list  # [(host activity, seconds)]
+    spans: object  # the program's spans, `spans.Spans`
 
     def kernel_s(self, kernels, iterations=None) -> float:
         """Device seconds of the kernels whose short name is in
@@ -109,7 +117,9 @@ def read_profile(prof, window_s: float) -> Trace:
 
 def reduce_events(events, window_s: float) -> Trace:
     """Reduce Chrome trace events to a :class:`Trace`."""
-    ops_by_ext, launch_ts, iters, host = {}, {}, [], []
+    from .spans import collect  # spans.py reads this module's names
+
+    ops_by_ext, launch_ts, iters, host, own = {}, {}, [], [], []
     for ev in events:
         cat, args = ev.get("cat"), ev.get("args", {})
         if cat == "cpu_op":
@@ -125,8 +135,16 @@ def reduce_events(events, window_s: float) -> Trace:
                 iters.append((s, e, int(name[len(ITER_PREFIX):])))
             else:
                 host.append((s, e, name))
+                if cat == "user_annotation" and name == HARNESS_RANGE:
+                    own.append((s, e))
     iters.sort()
     starts = [s for s, _, _ in iters]
+    own.sort()
+    own_starts = [s for s, _ in own]
+
+    def harness_launch(ts):
+        k = bisect.bisect_right(own_starts, ts) - 1
+        return k >= 0 and ts <= own[k][1]
 
     def iteration_at(ts):
         k = bisect.bisect_right(starts, ts) - 1
@@ -139,6 +157,9 @@ def reduce_events(events, window_s: float) -> Trace:
         if ev.get("cat") not in DEVICE_CATS or "dur" not in ev:
             continue
         args = ev.get("args", {})
+        lts = launch_ts.get(args.get("correlation"))
+        if lts is not None and harness_launch(lts):
+            continue
         ts, dur = float(ev["ts"]), float(ev["dur"])
         spans.append((ts, ts + dur))
         kernel = short_name(ev.get("name", "?"))
@@ -148,11 +169,10 @@ def reduce_events(events, window_s: float) -> Trace:
         # (``_FusedCompositeBackward``), and keep their kernel names
         linked = ops_by_ext.get(args.get("External id")) or ""
         aten = linked.startswith("aten::")
-        lts = launch_ts.get(args.get("correlation"))
         ops.append(DeviceOp(linked if aten else kernel, kernel, aten, ts,
                             dur, None if lts is None else iteration_at(lts)))
     return Trace(ops, busy_us(spans) / 1e6, window_s,
-                 _gaps(spans, iters, host))
+                 _gaps(spans, iters, host), collect(events))
 
 
 def _gaps(spans, iters, host):
