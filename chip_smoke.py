@@ -123,9 +123,28 @@ Phases, one line each:
      each other beside the spread of two bulk steps (float atomics in the
      march's backward), K3, K4, K7 and K8 counted; the slab paths on the
      same rays (the ring against `march_lit`, the segment march against
-     `march_lit` without the snap, rtol 1e-4, atol 1e-5) and both sharded
-     illuminations against `compute_illumination` (rtol 1e-5, atol 1e-6),
-     K4 counted.
+     `march_lit` without the snap, rtol 1e-4, atol 1e-5) and the
+     slab-local illumination against `compute_illumination` (rtol 1e-5,
+     atol 1e-6), K3's occluder source and K4 counted;
+ 13. slab: the kernels the slab-sharded `Renderer` gives new arguments, at
+     the Richtmyer-Meshkov cell's shapes (`rmbench/configs/
+     richtmyer_meshkov.json`: 2048x2048x1920 as four Z slabs of 480, the
+     stand-in volume, the cell's light, window and camera) on one card,
+     the ranks in turn: K3's occluder source on a held slab and halo with
+     a Z window, each face's light planes (the X face's with its light
+     halo), against its plain version on windows at either end (LIMITS)
+     and against itself on those windows (the same bits); K4 on the X
+     face's band in chunks of the sharded rebuild's slices chained by
+     carries, and on the Z face as two ranks' chunks of 480 slices chained
+     by the carry, each against one scan of the whole (the same bits) and
+     against its plain version with the carry (the same bits); K1 on each
+     rank's column band of the four slabs' summed partial planes against
+     its plain version (LIMITS) and against the one-card composite's band
+     of the same planes (atol 1e-6); the launches of K3's occluder
+     source, K4 and K1 counted from zero, with each launch's time.
+
+``python3 chip_smoke.py --phases 12,13`` runs phases 1, 2 and the named
+ones of 12 and 13 alone, on phase 3's scene.
 Every kernel is timed two ways: ``ms``, CUDA events around back-to-back
 calls of its Python wrapper (host time included where the host is slower
 than the card), and ``device_ms``, the device work alone (`device_ms`:
@@ -2088,15 +2107,10 @@ def _sharded_paths(torch, P, volume, tf, light_volume, plan, cam, transform,
     p = params(WINDOW[0])
     with torch.no_grad():
         want = PP.compute_illumination(p, plans, cc, cd, DIMS)
-        zero(("light_scan",))
-        got, ms = host_ms(torch, lambda: P.compute_illumination_sharded(
-            slab_mesh, p, plans, cc, cd, DIMS))
-        v1_launches = counts(("light_scan",))
-        err = float(((got - want).abs() - 1e-5 * want.abs()).max())
-        checks.append(("compute_illumination_sharded", err, 1e-6, ms,
-                       torch.equal(got, want)))
+        zero(("occluder", "light_scan"))
         got, ms = host_ms(torch, lambda: P.compute_illumination_sharded_v2(
             slab_mesh, p, plans, cc, cd, DIMS))
+        v2_launches = counts(("occluder", "light_scan"))
         err = float(((got - want).abs() - 1e-5 * want.abs()).max())
         checks.append(("compute_illumination_sharded_v2", err, 1e-6, ms,
                        torch.equal(got, want)))
@@ -2107,14 +2121,301 @@ def _sharded_paths(torch, P, volume, tf, light_volume, plan, cam, transform,
               f"bits: {equal} | {ms:.2f} ms (host clock) | {card}",
               flush=True)
         check(err <= limit, f"{name} disagrees with its single-device path")
-    print(f"[parallel] (f) K4 launches of compute_illumination_sharded "
-          f"{v1_launches}", flush=True)
+    sharded = {n: results[n]["sharded_launches"] for n in table
+               if "sharded_launches" in results.get(n, {})}
+    print(f"[parallel] (f) launches of one compute_illumination_sharded_v2 "
+          f"call {v2_launches} | the sharded launches of phase 12 "
+          f"{sharded}", flush=True)
+
+
+# Phase 13: the Richtmyer-Meshkov cell's configuration, its stand-in's
+# seed, the ranks, and the rank whose slab (with its neighbours') holds
+# the mixing layer; the clip plane dragged through it; the Z windows at
+# either end of a face's planes that K3's plain version is held on
+RM_CONFIG = "rmbench/configs/richtmyer_meshkov.json"
+RM_SEED, RM_RANKS, RM_RANK = 2**31 + 13, 4, 1
+RM_CLIP = ((0.45, 0.5, 0.5), (1.0, 0.0, 0.0))
+RM_PLAIN_PLANES = 16
+
+
+def slab_phase(torch, card, results):
+    """Phase 13 (see the module docstring): the kernels the slab-sharded
+    `Renderer` gives new arguments, at the Richtmyer-Meshkov cell's
+    shapes, rank by rank on one card; adds each kernel's launches to
+    ``results`` (``slab_launches``)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from rmbench import generator
+    from rmbench.volumes import rm_mixing
+    from tbraymarcherplugin_tpu_torch.models.pipeline import LightPlan
+    from tbraymarcherplugin_tpu_torch.ops import composite as K1
+    from tbraymarcherplugin_tpu_torch.ops import light_scan as K4
+    from tbraymarcherplugin_tpu_torch.ops import lighting as Lt
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+    from tbraymarcherplugin_tpu_torch.ops import transfer as T
+    from tbraymarcherplugin_tpu_torch.ops.rays import jitter_values
+    from tbraymarcherplugin_tpu_torch.parallel import slab_sharding as SS
+    from tbraymarcherplugin_tpu_torch.parallel.shearwarp_sharding import (
+        _local_plan,
+    )
+    from tbraymarcherplugin_tpu_torch.scene import (
+        Camera, ClipPlane, DirLight, VolumeTransform,
+    )
+
+    config = json.loads((Path(__file__).resolve().parent
+                         / RM_CONFIG).read_text())
+    dims = tuple(int(d) for d in config["dims"])
+    n, zc = RM_RANKS, dims[2] // RM_RANKS
+    dev = torch.device("cuda", 0)
+    tf = T.tf_ct_soft_tissue(device=dev)
+    win = [*config["window"], 1.0, 1.0]
+    clip = ClipPlane.create(*RM_CLIP)
+    cc, cd = clip.center, clip.direction
+    transform = VolumeTransform.create(
+        scale=tuple(generator.world_scale(config)))
+    (li,) = config["lights"]
+    lplan = LightPlan.create(transform.local_light_direction(
+        DirLight.create(li["direction"], li["intensity"])), dims)
+    depth = SS.held_depth((lplan,), dims, dims, n)
+    kernels = {"occluder": (Lt, "occluder_opacity"),
+               "light_scan": (K4, "propagate_face_scan"),
+               "composite": (K1, "composite")}
+    for mod, fn in kernels.values():
+        getattr(mod, fn).launches = 0
+
+    def held(rank):
+        z0, z1 = rank * zc, (rank + 1) * zc
+        h0, h1 = max(z0 - depth, 0), min(z1 + depth, dims[2])
+        return rm_mixing.make(dims, RM_SEED, dev, z=(h0, h1)), h0
+
+    def occluder(vol, h0, fp, a, b):
+        """K3 on light planes [a, b), held to its plain version on the
+        first and last planes and to itself on those windows."""
+        args = (vol, tf, win, dims, fp.uvw_offset, fp.step_size, cc, cd)
+        got = Lt.occluder_opacity(*args, window=Lt.ZWindow(dims, h0, a, b))
+        ms = cuda_ms(torch, lambda: Lt.occluder_opacity(
+            *args, window=Lt.ZWindow(dims, h0, a, b)), 2)
+        err, same = 0.0, True
+        for w0, w1 in ((a, a + RM_PLAIN_PLANES), (b - RM_PLAIN_PLANES, b)):
+            part = got[:, :, w0 - a:w1 - a]
+            win_w = Lt.ZWindow(dims, h0, w0, w1)
+            want = Lt.occluder_opacity_plain(*args, window=win_w)
+            err = max(err, float((part - want).abs().max()))
+            same &= torch.equal(Lt.occluder_opacity(*args, window=win_w),
+                                part)
+            del want
+        check(math.isfinite(err) and err <= LIMITS["occluder"],
+              f"occluder on a Z window disagrees with its plain version "
+              f"({err:.3e})")
+        check(same, "occluder on a sub-window != its window's planes")
+        check(bool((got > 0).any()), "occluder: an empty field")
+        print(f"[slab] occluder, face {fp.face}, light planes {a}..{b - 1} "
+              f"of {dims} from the held planes {h0}..{h0 + vol.shape[2] - 1}:"
+              f" {ms:.3f} ms | vs plain on planes {a}..{a + RM_PLAIN_PLANES - 1}"
+              f" and {b - RM_PLAIN_PLANES}..{b - 1} max abs {err:.3e} (limit "
+              f"{LIMITS['occluder']:.0e}), the sub-windows the same bits: "
+              f"{same} | {card}", flush=True)
+        return got
+
+    def chained(scan, offs, alpha, h, carry=None, plain=2):
+        """K4 on ``scan`` in chunks of ``h`` slices chained by carries
+        against one scan of the whole, and its first ``plain`` chunks
+        after the first against the plain version with the carry."""
+        whole = K4.propagate_face_scan(scan, *offs, alpha, carry)
+        ms = cuda_ms(torch, lambda: K4.propagate_face_scan(
+            scan, *offs, alpha, carry), 2)
+        same, same_plain, c = True, True, carry
+        for i, k0 in enumerate(range(0, scan.shape[0], h)):
+            part = K4.propagate_face_scan(scan[k0:k0 + h], *offs, alpha, c)
+            same &= torch.equal(part, whole[k0:k0 + h])
+            if 0 < i <= plain:
+                same_plain &= torch.equal(part, K4.propagate_face_scan_plain(
+                    scan[k0:k0 + h], *offs, alpha, c))
+            c = part[-1].clone()
+            del part
+        check(same, "K4's chunks chained by carries != one scan")
+        check(same_plain, "K4 with a carry != its plain version")
+        return whole, ms, same, same_plain
+
+    # K3 and K4 of each face on rank RM_RANK's slab and its neighbour's
+    vol, h0 = held(RM_RANK)
+    z0, z1 = RM_RANK * zc, (RM_RANK + 1) * zc
+    zface = None
+    for fp in lplan.face_plans:
+        alpha = float(np.float32(li["intensity"])
+                      * np.float32(fp.light_alpha))
+        ax = Lt.transposed_axes(fp.face)
+        uv = np.asarray(fp.uv_offset, np.float32)
+        offs = (uv[0] * np.float32(dims[ax[0]]),
+                uv[1] * np.float32(dims[ax[1]]))
+        if Lt.face_axis(fp.face) == 2:
+            zface = (fp, alpha, offs, occluder(vol, h0, fp, z0, z1))
+            continue
+        h, cols, above = SS._xy_face_halo(fp, dims, zc)
+        a, b = (z0, min(z1 + cols, dims[2])) if above else (
+            max(z0 - cols, 0), z1)
+        opac = occluder(vol, h0, fp, a, b)
+        scan = opac if Lt.face_axis(fp.face) == 0 else opac.permute(1, 0, 2)
+        if Lt.face_direction(fp.face) == -1:
+            scan = scan.flip(0)
+        scan = scan.contiguous()
+        del opac
+        _, ms, same, same_plain = chained(scan, offs, alpha, h)
+        print(f"[slab] K4, face {fp.face}, the band of light planes "
+              f"{a}..{b - 1} ({tuple(scan.shape)} in scan order) in chunks "
+              f"of {h} slices chained by carries: the same bits as one scan "
+              f"{same}, as the plain version with the carry {same_plain} | "
+              f"one scan {ms:.3f} ms | {card}", flush=True)
+        del scan
+    del vol
+    torch.cuda.empty_cache()
+    check(zface is not None, "the cell's light has no Z face")
+    fp, alpha, offs, mine = zface
+    vol, h0 = held(RM_RANK + 1)
+    other = occluder(vol, h0, fp, z1, z1 + zc)
+    del vol
+    op = torch.cat([mine, other], dim=2)
+    del mine, other
+    if Lt.face_direction(fp.face) == -1:
+        op = op.flip(2)
+    scan = op.movedim(2, 0).contiguous()
+    del op
+    torch.cuda.empty_cache()
+    _, ms, same, same_plain = chained(scan, offs, alpha, zc, plain=1)
+    print(f"[slab] K4, face {fp.face}, ranks {RM_RANK} and {RM_RANK + 1}'s "
+          f"chunks ({zc}, {dims[0]}, {dims[1]}) chained by the carry: the "
+          f"same bits as one scan of {tuple(scan.shape)} {same}, the second "
+          f"chunk as the plain version with the carry {same_plain} | one "
+          f"scan {ms:.3f} ms | {card}", flush=True)
+    del scan
+    torch.cuda.empty_cache()
+
+    # K1 on each rank's column band of the four slabs' summed partial planes
+    pos, target, fov = generator.base_camera(config)
+    cam = Camera.look_at(np.asarray(pos), np.asarray(target),
+                         fov_degrees=fov)
+    plan = SW.plan_shearwarp(cam, transform, dims, dims, config["width"],
+                             config["height"],
+                             max_planes=config["step_count"])
+    check(plan is not None and plan.n2 % n == 0, "no plan for the cell")
+    nb = plan.n2 // n
+    sums, mn, mx = None, None, None
+    for rank in range(n):
+        slab = rm_mixing.make(dims, RM_SEED, dev,
+                              z=(rank * zc, (rank + 1) * zc))
+        light = torch.rand(slab.shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(rank))
+        W, L, (lo, hi) = K1.preshear_slab(slab, light, plan, dims, dims,
+                                          rank * zc, rank * zc, n, True)
+        del slab, light
+        sums = (W, L) if sums is None else (sums[0] + W, sums[1] + L)
+        mn = lo if mn is None else torch.minimum(mn, lo)
+        mx = hi if mx is None else torch.maximum(mx, hi)
+        del W, L
+    torch.cuda.empty_cache()
+    dtype = SW.plane_dtype(None, dev)
+    Wp, Lp = (x.to(dtype) for x in sums)
+    del sums
+    jitter = jitter_values(plan.n2, plan.n1, 0, device=dev)
+    et = config["renderer"]["early_termination"]
+    d12 = (dims[plan.axes12[0]], dims[plan.axes12[1]])
+
+    def whole(x):
+        return x.permute(1, 2, 0, 3).reshape(x.shape[1], plan.n1, -1)
+
+    full = K1.composite(**K1.composite_args(
+        plan, whole(Wp), whole(Lp), tf, win, (mn, mx), cc, cd, et, jitter,
+        None, "lit", *d12))
+    err_plain, err_full, band_ms = 0.0, 0.0, []
+    for rank in range(n):
+        cols = slice(rank * nb, (rank + 1) * nb)
+        ops = K1.composite_args(_local_plan(plan, rank, nb), Wp[rank],
+                                Lp[rank], tf, win, (mn, mx), cc, cd, et,
+                                jitter[:, cols], None, "lit", *d12)
+        band = K1.composite(**ops)
+        band_ms.append(cuda_ms(torch, lambda: K1.composite(**ops), 3))
+        err_plain = max(err_plain, float(
+            (band - K1.composite_plain(**ops)).abs().max()))
+        err_full = max(err_full, float((band - full[:, :, cols]).abs().max()))
+        del band, ops
+    print(f"[slab] K1 on the column bands ({Wp.shape[1]} {dtype} planes, "
+          f"{plan.n1}x{nb} each) of the four slabs' summed partial planes: "
+          f"vs plain max abs {err_plain:.3e} (limit {LIMITS['composite']:.0e})"
+          f", vs the one-card composite's band {err_full:.3e} (limit 1e-6) |"
+          f" {', '.join(f'{m:.3f}' for m in band_ms)} ms a band | {card}",
+          flush=True)
+    check(math.isfinite(err_plain) and err_plain <= LIMITS["composite"],
+          "K1 on a band disagrees with its plain version")
+    check(err_full <= 1e-6, "K1 on a band != the one-card composite's band")
+    check(bool((full[3] > 0.5).any()), "K1: nothing is drawn")
+    launches = {}
+    for name, (mod, fn) in kernels.items():
+        launches[name] = getattr(mod, fn).launches
+        check(launches[name] > 0, f"kernel {name} was not launched by "
+              f"phase 13")
+        results[name]["slab_launches"] = launches[name]
+    print(f"[slab] launches of phase 13, counted from zero: {launches} | "
+          f"{card}", flush=True)
 
 
 T0 = time.perf_counter()
 
 
+def _phases(argv) -> set | None:
+    """The phases of 12 and 13 that ``--phases a,b`` names; None: all."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases 12,13]")
+    phases = {int(p) for p in argv[1].split(",")}
+    if not phases or not phases <= {12, 13}:
+        raise SystemExit("--phases takes 12 and 13 alone")
+    return phases
+
+
+def some_phases(torch, phases, volume, tf, win, light, cam, transform, clip,
+                card) -> int:
+    """Phases 12 and 13 alone (``--phases``), 12 on phase 3's scene and its
+    light volume and plan; then the launches they counted and the result
+    line."""
+    from tbraymarcherplugin_tpu_torch.ops import lighting as Lt
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+
+    results = collections.defaultdict(dict)
+    if 12 in phases:
+        t12 = time.perf_counter()
+        light_volume = Lt.reset_all_lights(
+            volume, tf, win, clip.center, clip.direction,
+            [(transform.local_light_direction(light), 1.0)], DIMS)
+        plan = SW.plan_shearwarp(cam, transform, DIMS, DIMS, WIDTH, HEIGHT,
+                                 max_planes=STEPS)
+        parallel_phase(torch, volume, tf, light_volume, plan, cam,
+                       transform, clip, card, results)
+        del light_volume
+        torch.cuda.synchronize()
+        print(f"[time] phase 12 {time.perf_counter() - t12:.1f} s | {card}",
+              flush=True)
+    if 13 in phases:
+        del volume
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        slab_phase(torch, card, results)
+        torch.cuda.synchronize()
+        print(f"[time] phase 13 {time.perf_counter() - t13:.1f} s, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB | {card}", flush=True)
+    print(json.dumps({"launches": results}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    phases = _phases(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -2168,6 +2469,9 @@ def main() -> int:
     clip = transform.local_clip_plane(ClipPlane.disabled())
     light = DirLight.create(LIGHT_DIR, 1.0)
     cam = Camera.look_at(CAM_POS, 0.0, fov_degrees=FOV)
+    if phases is not None:
+        return some_phases(torch, phases, volume, tf, win, light, cam,
+                           transform, clip, card)
     results = {}
 
     def record(name, got, want, ms, plain_ms, dev, calls=None, bnd=None):
@@ -2446,6 +2750,16 @@ def main() -> int:
     torch.cuda.synchronize()
     now = time.perf_counter()
     print(f"[time] phase 12 {now - t12:.1f} s | the script up to here "
+          f"{now - T0:.1f} s (host clock) | {card}", flush=True)
+
+    # --- 13. slab: the sharded Renderer's kernels at the RM cell's shapes -
+    del volume, light_volume, plan
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    slab_phase(torch, card, results)
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    print(f"[time] phase 13 {now - t13:.1f} s | the script up to here "
           f"{now - T0:.1f} s (host clock) | {card}", flush=True)
 
     names = [n for n, _, _ in kernel_table()]

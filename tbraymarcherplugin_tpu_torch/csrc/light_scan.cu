@@ -3,8 +3,12 @@
 // Replaces the TPU kernel tbraymarcherplugin_tpu/ops/pallas_lighting.py::
 // _scan_kernel (entry point propagate_face_scan_pallas). It computes
 //   c_k = shift2d_border(c_{k-1}, (off_x, off_y), border = alpha) * (1 - o_k)
-// with c_{-1} = alpha everywhere, and writes every c_k. A tap whose true
-// index lies outside [0, n) reads alpha. alpha (intensity times face weight)
+// with c_{-1} = alpha everywhere, or the plane `carry` where one is given
+// (the light entering a chunk of a face that another launch, or another
+// card, scanned up to it: the chunks chained by their carries are the
+// whole face's scan bit for bit), and writes every c_k; the carry out is
+// the last slice written. A tap whose true index lies outside [0, n)
+// reads alpha. alpha (intensity times face weight)
 // is read from device memory, so it can be a tensor that takes a gradient
 // without a host sync, or passed by value.
 //
@@ -126,7 +130,7 @@ __global__ void __launch_bounds__(1024, 1)
     light_scan_kernel(const float* __restrict__ op, float* out,
                       unsigned long long* flags, unsigned long long base,
                       const ScanShape s, const float* __restrict__ alpha_p,
-                      float alpha_v) {
+                      float alpha_v, const float* __restrict__ carry) {
   extern __shared__ __align__(16) float stage[];
   const int K = s.K, H = s.H, W = s.W, T = s.T, reach = s.reach;
   const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
@@ -176,7 +180,8 @@ __global__ void __launch_bounds__(1024, 1)
     return Vals<V>{};
   };
   // tbr_shift2d's arithmetic at unit p on the previous slice `src` (the
-  // stage, or the output plane; null: the constant alpha before slice 0):
+  // stage, or the output plane or the carry; null: the constant alpha
+  // before slice 0):
   // the rows lerp by fx at the unit's V + 1 tap columns (alpha outside the
   // face), then each pixel lerps two neighbouring columns by fy
   auto shifted = [&](const float* src, const Unit& p, float* v) {
@@ -202,19 +207,21 @@ __global__ void __launch_bounds__(1024, 1)
       v[e] = __fadd_rn(__fmul_rn(c[e], gy), __fmul_rn(c[e + 1], s.fy));
     }
   };
-  // stage rows [max(lr0, 0), min(lr1, H)) of slice k - 1 (alpha at k = 0)
+  // stage rows [max(lr0, 0), min(lr1, H)) of slice k - 1 (at k = 0 the
+  // carry, or alpha)
   auto load_stage = [&](int k) {
     const int f0 = max(lr0, 0);
     const int n = (min(lr1, H) - f0) * W;
     float* dst = stage + (f0 - lr0) * W;
-    const float* src = out + (size_t)(k > 0 ? k - 1 : 0) * hw +
+    const float* src = (k > 0 ? out + (size_t)(k - 1) * hw : carry) +
                        (size_t)f0 * W;
+    const bool read = k > 0 || carry != nullptr;
     for (int u0 = tid; u0 < n; u0 += 4 * nt) {
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int u = u0 + e * nt;
-        v[e] = u < n ? (k > 0 ? __ldcg(src + u) : alpha) : 0.0f;
+        v[e] = u < n ? (read ? __ldcg(src + u) : alpha) : 0.0f;
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -245,7 +252,7 @@ __global__ void __launch_bounds__(1024, 1)
     const int chi = last ? ohi : up ? ohi : nb + (T - 1 - t) * reach;
     const float* src =
         STAGED ? stage + (t & 1) * plane
-               : (k > 0 ? out + (size_t)(k - 1) * hw : nullptr);
+               : (k > 0 ? out + (size_t)(k - 1) * hw : carry);
     float* next = STAGED && !last ? stage + ((t + 1) & 1) * plane : nullptr;
     float* dst = out + (size_t)k * hw;
     auto compute = [&](const Unit& p, const Vals<V>& o) {
@@ -343,7 +350,8 @@ TBR_API int tbr_device_attribute(int attr) {
 // scan_plan gives (blocks of `threads`, P units of V pixels a thread
 // (V = 4: op and out 16-byte aligned, W a multiple of 4) in `chunks`,
 // `smem` bytes of stage when `staged`). (ix, fx, iy, fy) split the offset;
-// alpha is *alpha_p, or alpha_v where alpha_p is null. `flags` holds at
+// alpha is *alpha_p, or alpha_v where alpha_p is null; `carry`, an (H, W)
+// plane or null, is the light entering slice 0 (c_{-1}). `flags` holds at
 // least `blocks` counters, none above `base`; the launch leaves them at
 // most base + ceil(K / T) - 1 (the caller's next base is base + ceil(K /
 // T)).
@@ -353,7 +361,7 @@ TBR_API int tbr_light_scan(const float* op, float* out,
                            int reach, int staged, int threads, int P,
                            int V, int chunks, int smem, int ix, float fx,
                            int iy, float fy, const float* alpha_p,
-                           float alpha_v, void* stream) {
+                           float alpha_v, const float* carry, void* stream) {
   if (K <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
   if (blocks <= 0 || R <= 0 || T <= 0 || reach <= 0 || chunks <= 0 ||
       threads <= 0 || threads > 1024 || threads % 32 != 0 ||
@@ -362,7 +370,8 @@ TBR_API int tbr_light_scan(const float* op, float* out,
     return (int)cudaErrorInvalidValue;
   }
   ScanShape shape{K, H, W, R, T, reach, chunks, ix, iy, fx, fy};
-  void* args[] = {&op, &out, &flags, &base, &shape, &alpha_p, &alpha_v};
+  void* args[] = {&op,   &out,     &flags,   &base,
+                  &shape, &alpha_p, &alpha_v, &carry};
   cudaStream_t s = (cudaStream_t)stream;
   int err = staged ? dispatch<true>(P, V, blocks, threads, smem, args, s)
                    : dispatch<false>(P, V, blocks, threads, 0, args, s);

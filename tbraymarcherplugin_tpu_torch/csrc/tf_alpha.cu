@@ -35,6 +35,12 @@
 // halo corners are the neighbouring threads' (L1 and L2), so the volume is
 // read from device memory about once. The table is loaded once per block.
 //
+// A Z window (`oz`, `vz`) lets a launch write a run of the light grid's
+// Z planes from a volume that holds only a run of its Z planes (a slab and
+// its halo, parallel/slab_sharding.py): every coordinate stays the whole
+// grid's, and only the addresses are re-based, so a window's values are
+// those of the whole field's planes bit for bit.
+//
 // Arithmetic as ops/lighting.py::occluder_opacity_plain and the parent
 // composition: uvw = ((g + 0.5) / res) + off, the resample's lerps
 // (z, then y, then x at ratio 1; x, then y, then z, the selection
@@ -66,6 +72,8 @@ struct TbrOccluder {
   float win[4];     // the window, where the kernel's `win` is null
   const float* clip_dev;  // the clip plane (6 floats) on the device, or null
   int x_first;      // any ratio above 1: lerp x, then y, then z
+  int oz[2];        // the light Z planes written: oz[0] .. oz[0] + oz[1] - 1
+  int vz[2];        // the volume's Z planes held: vz[0] .. vz[0] + vz[1] - 1
 };
 
 constexpr int OCC_SLAB = 16;  // x planes a thread walks
@@ -147,10 +155,11 @@ __global__ void tf_alpha_kernel(const float* __restrict__ src,
                          high_c, step);
     }
   } else {
-    const int LX = o.ld[0], LY = o.ld[1], LZ = o.ld[2];
+    const int LX = o.ld[0], LY = o.ld[1], LZ = o.oz[1];  // LZ written
     const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (col >= (long long)LY * LZ) return;
-    const int y = (int)(col / LZ), z = (int)(col - (long long)y * LZ);
+    const int y = (int)(col / LZ), zl = (int)(col - (long long)y * LZ);
+    const int z = o.oz[0] + zl;  // the grid's own Z index
     const int x0 = blockIdx.y * OCC_SLAB, x1 = min(x0 + OCC_SLAB, LX);
     // the column's corners in a volume plane, (dy, dz) as dy * 2 + dz
     const int yb = o.base[1] + y * o.r[1], zb = o.base[2] + z * o.r[2];
@@ -160,11 +169,11 @@ __global__ void tf_alpha_kernel(const float* __restrict__ src,
 #pragma unroll
       for (int dz = 0; dz < 2; ++dz) {
         corner[2 * dy + dz] =
-            (long long)tbr_clampi(yb + dy, o.vd[1] - 1) * o.vd[2] +
-            tbr_clampi(zb + dz, o.vd[2] - 1);
+            (long long)tbr_clampi(yb + dy, o.vd[1] - 1) * o.vz[1] +
+            (tbr_clampi(zb + dz, o.vd[2] - 1) - o.vz[0]);
       }
     }
-    const long long plane = (long long)o.vd[1] * o.vd[2];
+    const long long plane = (long long)o.vd[1] * o.vz[1];
     // the column's UVW along y and z, its cube test and clip terms
     float cc[3], cd[3];
 #pragma unroll
@@ -210,7 +219,7 @@ __global__ void tf_alpha_kernel(const float* __restrict__ src,
       const bool keep = inside && weight > 0.0f;
       const float a = tbr_alpha(value, alpha_tab, center, half_width, width,
                                 low_c, high_c, step);
-      const long long i = ((long long)x * LY + y) * LZ + z;
+      const long long i = ((long long)x * LY + y) * LZ + zl;
       out[i] = keep ? __fmul_rn(a, weight) : 0.0f;
       if (values) values[i] = value;
       if (keep_weight) keep_weight[i] = keep ? weight : 0.0f;
@@ -231,14 +240,15 @@ TBR_API int tbr_tf_alpha(const float* values, const float* tf,
   return (int)cudaGetLastError();
 }
 
-// One face's occluder opacity from the volume (X, Y, Z); `geo` is a host
+// One face's occluder opacity from the volume (X, Y, Z), or from the Z
+// planes geo->vz of it, into the light planes geo->oz; `geo` is a host
 // pointer, copied into the launch. `win` (then read from geo->win),
 // `values` and `keep_weight` may be null.
 TBR_API int tbr_occluder_alpha(const float* volume, const float* tf,
                                const float* win, const TbrOccluder* geo,
                                float* out, float* values, float* keep_weight,
                                float step, void* stream) {
-  const long long cols = (long long)geo->ld[1] * geo->ld[2];
+  const long long cols = (long long)geo->ld[1] * geo->oz[1];
   if (cols <= 0 || geo->ld[0] <= 0) return (int)cudaGetLastError();
   const int threads = 256;
   const dim3 grid((unsigned)((cols + threads - 1) / threads),

@@ -54,7 +54,7 @@ SIGNATURES = {
     "tbr_occluder_alpha": [_P] * 7 + [_F, _P],
     "tbr_tf_alpha_bwd": [_P] * 9 + [ctypes.c_longlong, _F, _I, _P],
     "tbr_light_scan": [_P, _P, _P, ctypes.c_ulonglong] + [_I] * 14
-    + [_F, _I, _F, _P, _F, _P],
+    + [_F, _I, _F, _P, _F, _P, _P],
     "tbr_device_attribute": [_I],
     "tbr_light_scan_bwd": [_P] * 8 + [ctypes.c_ulonglong] + [_I] * 4
     + [_F, _I, _F, _I, _F, _I, _F] + [_P, _P],

@@ -25,9 +25,9 @@ from ..utils.profiling import COMPOSITE, PRESHEAR, TILE_BOUNDS, span
 from . import _kernels
 from .compositing import EARLY_TERMINATION_ALPHA
 from .sampling import VOLUME_DENSITY
-from .shearwarp import (ShearWarpPlan, _pad_to, _resample_block, _t,
-                        _volume_planes, columns, plane_dtype,
-                        rebased_columns)
+from .shearwarp import (ShearWarpPlan, _pad_to, _resample_block,
+                        _resample_matrices, _t, _volume_planes, columns,
+                        plane_dtype, rebased_columns)
 from .transfer import windowed_tf_range_occupied
 
 KB = 16  # planes per occupancy chunk
@@ -384,7 +384,6 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     compute_dtype = plane_dtype(compute_dtype, dev)
     n1, n2, K = plan.n1, plan.n2, plan.k
     Kp = _ceil_to(K, KB)
-    nch = Kp // KB
     jitter_on = jitter is not None
     Kbuf = Kp + 1 if jitter_on else Kp
 
@@ -415,16 +414,41 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
                                 coeff("lb1"), coeff("la2"), coeff("lb2"), n1,
                                 n2, compute_dtype, j0=plan.j0)
 
+    value_range = None
+    if mode != "intensity":  # plan data: detached, it takes no gradient
+        vp = vplanes.detach()
+        value_range = (vp.amin((1, 2)), vp.amax((1, 2)))
+    return composite_args(
+        plan, W, L, tf_table, windowing_vec4, value_range, clip_center,
+        clip_direction, early_termination, jitter, depth_lam, mode,
+        volume.shape[plan.axes12[0]], volume.shape[plan.axes12[1]])
+
+
+def composite_args(plan: ShearWarpPlan, W, L, tf_table, windowing_vec4,
+                   value_range, clip_center, clip_direction,
+                   early_termination: float = EARLY_TERMINATION_ALPHA,
+                   jitter=None, depth_lam=None, mode: str = "lit",
+                   d1: int = 0, d2: int = 0) -> dict:
+    """The keyword arguments of :func:`composite` from the pre-sheared
+    planes ``W`` and ``L`` of ``plan`` (its columns: a column band's plan
+    takes the band's planes, jitter and λ ceiling): ``value_range`` is
+    each plane's (min, max) of volume values, (K,) each, for the chunk
+    occupancy (None in intensity mode, where every chunk counts); ``d1``,
+    ``d2`` the volume's sizes along ``plan.axes12``. See
+    :func:`prepare_composite`."""
+    dev = W.device
+    K = plan.k
+    Kp = _ceil_to(K, KB)
+    nch = Kp // KB
+    jitter_on = jitter is not None
     win = to_device(windowing_vec4, dev, torch.float32)
     if mode == "intensity":
         occ = torch.ones(nch, dtype=torch.bool, device=dev)
     else:
         # Chunk occupancy: can any value in a chunk's range give alpha > 0?
-        # (plan data: computed on detached values, it takes no gradient)
         inf = to_device([float("inf")], dev)
-        vp = vplanes.detach()
-        sl_mn = torch.cat([vp.amin((1, 2)), inf.expand(Kp - K)])
-        sl_mx = torch.cat([vp.amax((1, 2)), -inf.expand(Kp - K)])
+        sl_mn = torch.cat([value_range[0], inf.expand(Kp - K)])
+        sl_mx = torch.cat([value_range[1], -inf.expand(Kp - K)])
         mn_c = sl_mn.view(nch, KB).amin(1)
         mx_c = sl_mx.view(nch, KB).amax(1)
         if jitter_on:  # jittered samples of chunk c lerp into plane (c+1)*KB
@@ -436,15 +460,13 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
 
     step_world, e0, e1 = _clip_step_fields(plan, clip_center, clip_direction,
                                            dev)
-    D1 = volume.shape[plan.axes12[0]]
-    D2 = volume.shape[plan.axes12[1]]
     ops = dict(
         W=W, L=L, tf_table=tf_table.contiguous(),
         pa=_plane_param_array(plan, Kp, extend=jitter_on),
         occ=occ.to(torch.int32).contiguous(), e1=e1, step_world=step_world,
         jitter=None if jitter is None else jitter.contiguous(),
         win=win.contiguous(), e0=e0,
-        early_termination=float(early_termination), d1=D1, d2=D2, k_real=K,
+        early_termination=float(early_termination), d1=d1, d2=d2, k_real=K,
     )
     # a lit frame without a λ ceiling keeps composite's defaults, so that
     # its arguments are also those of the backward (shearwarp_grad)
@@ -454,6 +476,137 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     if mode != "lit":
         ops["mode"] = mode
     return ops
+
+
+# the planes a slab's pre-shear resamples at a time
+SLAB_PRESHEAR_BLOCK = 16
+
+
+def _own(idx: np.ndarray, z0: int, z1: int) -> np.ndarray:
+    return (idx >= z0) & (idx < z1)
+
+
+def _slab_lerp(vol_t, m0, m1, t, z0: int, z1: int, block):
+    """This slab's share of the planes ``block`` of the lerp
+    ``v[m0] (1 - t) + v[m1] t`` of the Z slices of ``vol_t`` (Zc, A, B),
+    the slab's planes z0 .. z1 - 1: the terms of the slices it owns, 0
+    for the others (``m1`` None: the slices ``m0`` alone). A plane both
+    of whose slices it owns is the lerp's own arithmetic."""
+    dev = vol_t.device
+    zc = vol_t.shape[0]
+
+    def term(m):
+        own = torch.from_numpy(_own(m[block], z0, z1)).to(dev)
+        idx = torch.from_numpy(np.clip(m[block] - z0, 0, zc - 1)).to(dev)
+        return vol_t[idx] * own[:, None, None].to(vol_t.dtype)
+
+    if m1 is None:
+        return term(m0)
+    tt = _t(t[block], dev)[:, None, None]
+    return term(m0) * (1.0 - tt) + term(m1) * tt
+
+
+def _slice_range(vol_t, m0, m1, t, z0: int, z1: int):
+    """(K,) conservative (min, max) of each plane's values from the Z
+    slices this slab owns with a positive weight (+-inf where none): a
+    lerp's value lies between its two slices', up to an ulp, which the
+    range is widened by."""
+    dev = vol_t.device
+    smn, smx = vol_t.amin((1, 2)), vol_t.amax((1, 2))
+    inf = torch.tensor(float("inf"), device=dev)
+    zc = vol_t.shape[0]
+    mn = inf.expand(len(m0)).clone()
+    mx = -mn
+    terms = [(m0, None if t is None else t < 1.0)]
+    if m1 is not None:
+        terms.append((m1, t > 0.0))
+    for m, w in terms:
+        own = _own(m, z0, z1) & (True if w is None else w)
+        sel = torch.from_numpy(own).to(dev)
+        idx = torch.from_numpy(np.clip(m - z0, 0, zc - 1)).to(dev)
+        mn = torch.where(sel, torch.minimum(mn, smn[idx]), mn)
+        mx = torch.where(sel, torch.maximum(mx, smx[idx]), mx)
+    return (torch.nextafter(mn, -inf), torch.nextafter(mx, inf))
+
+
+def preshear_slab(volume, light_volume, plan: ShearWarpPlan, dims,
+                  light_dims, z0: int, lz0: int, bands: int,
+                  jitter_on: bool):
+    """This slab's partial sums of every plane of ``plan``'s pre-shear:
+    the terms of the resample over the volume's Z planes z0 .. z0 + Zc - 1
+    it holds (``volume``, (X, Y, Zc), a slab of a volume of ``dims``; the
+    light chunk ``light_volume`` from light plane ``lz0`` of
+    ``light_dims``), float32, so that the slabs' partial planes add up to
+    the whole volume's pre-shear, each bilinear tap counted by the slab
+    that owns it. Returns (W, L, (mn, mx)): the partial volume and light
+    planes as (bands, Kbuf, n1, n2 / bands), the planes' column bands in
+    turn (a reduce-scatter's chunks), and each plane's conservative value
+    range over the slab (:func:`_slice_range`; (K,) each). A principal
+    axis along X or Y (Z one of the plane's axes) takes the slab's rows of
+    the column taps; one along Z its slices' share of each plane's lerp
+    (:func:`_slab_lerp`). Made :data:`SLAB_PRESHEAR_BLOCK` planes at a
+    time."""
+    dev = volume.device
+    f32 = torch.float32
+    n1, n2, K = plan.n1, plan.n2, plan.k
+    nb = n2 // bands
+    Kbuf = _ceil_to(K, KB) + (1 if jitter_on else 0)
+    zc, lzc = volume.shape[2], light_volume.shape[2]
+    ax = (plan.axis,) + tuple(plan.axes12)
+
+    def pad(x):
+        return np.concatenate([x, np.repeat(x[-1:], Kbuf - len(x), 0)])
+
+    def coeff(name):
+        return _t(pad(np.asarray(getattr(plan, name))), dev)
+
+    W = torch.empty((bands, Kbuf, n1, nb), dtype=f32, device=dev)
+    L = torch.empty_like(W)
+    idx = pad(np.arange(K))
+    if plan.axis != 2:  # Z is the planes' second axis: the slab's rows
+        vplanes = _volume_planes(volume.permute(ax), plan)
+        rng = (vplanes.amin((1, 2)), vplanes.amax((1, 2)))
+        light_t = light_volume.permute(ax)
+        lm0 = _t(plan.lm0, dev)
+        lmt = _t(plan.lmt, dev)[:, None, None]
+        lplanes = (light_t[lm0] * (1.0 - lmt) + light_t[
+            (lm0 + 1).clamp(max=light_t.shape[0] - 1)] * lmt)
+        rows = {"v": (z0, z0 + zc), "l": (lz0, lz0 + lzc)}
+
+        def planes(kind, block):
+            return (vplanes if kind == "v" else lplanes)[
+                torch.from_numpy(idx[block]).to(dev)]
+    else:  # the planes are Z slices: the slab's share of each lerp
+        vol_t = volume.permute(ax)
+        light_t = light_volume.permute(ax)
+        m0, m1, t = plan.m_src, plan.msrc_hi, plan.mfrac
+        rng = _slice_range(vol_t, m0, m1, t, z0, z0 + zc)
+        lm1 = np.minimum(plan.lm0 + 1, light_dims[2] - 1)
+        rows = {"v": None, "l": None}
+        src = {"v": (vol_t, pad(m0), None if m1 is None else pad(m1),
+                     None if t is None else pad(t), z0, z0 + zc),
+               "l": (light_t, pad(plan.lm0), pad(lm1), pad(plan.lmt), lz0,
+                     lz0 + lzc)}
+
+        def planes(kind, block):
+            return _slab_lerp(*src[kind][:4], *src[kind][4:], block)
+    d = {"v": (dims[plan.axes12[0]], dims[plan.axes12[1]]),
+         "l": (light_dims[plan.axes12[0]], light_dims[plan.axes12[1]])}
+    names = {"v": ("a1", "b1", "a2", "b2"), "l": ("la1", "lb1", "la2",
+                                                 "lb2")}
+    for k0 in range(0, Kbuf, SLAB_PRESHEAR_BLOCK):
+        block = slice(k0, min(k0 + SLAB_PRESHEAR_BLOCK, Kbuf))
+        for kind, out in (("v", W), ("l", L)):
+            a1, b1, a2, b2 = (coeff(nm)[block] for nm in names[kind])
+            sl = planes(kind, block).to(f32)
+            S1 = _resample_matrices(a1, b1, d[kind][0], n1, f32)
+            S2 = _resample_matrices(a2, b2, d[kind][1], n2, f32,
+                                    rows=rows[kind])
+            tb = torch.bmm(S1.transpose(1, 2), sl)
+            for b in range(bands):
+                torch.bmm(tb, S2[:, :, b * nb:(b + 1) * nb],
+                          out=out[b, block])
+    return W, L, rng
 
 
 def shearwarp_intermediate_fused(volume, tf_table, light_volume,

@@ -72,12 +72,15 @@ def _alpha_tensor(light_alpha, device) -> torch.Tensor:
 
 
 def propagate_face_scan_plain(opacity_scan: torch.Tensor, off_px, off_py,
-                              light_alpha) -> torch.Tensor:
+                              light_alpha, carry=None) -> torch.Tensor:
     """(K, H, W) scan-ordered occluder opacities -> every transmitted slice
     ``c_k = shift2d_border(c_{k-1}, off, alpha) * (1 - o_k)``,
-    ``c_{-1} = alpha``."""
+    ``c_{-1} = alpha``, or the (H, W) plane ``carry`` where one is given
+    (the light entering a chunk of the face; the carry out is the last
+    slice)."""
     alpha = _alpha_tensor(light_alpha, opacity_scan.device)
-    carry = alpha.expand(opacity_scan.shape[1:])
+    if carry is None:
+        carry = alpha.expand(opacity_scan.shape[1:])
     out = torch.empty_like(opacity_scan)
     for k in range(opacity_scan.shape[0]):
         prev = shift_2d_bilinear_border(carry, off_px, off_py, alpha)
@@ -211,31 +214,41 @@ def _scan_flags(dev, stream: int, steps: int):
 
 
 def propagate_face_scan(opacity_scan: torch.Tensor, off_px, off_py,
-                        light_alpha) -> torch.Tensor:
+                        light_alpha, carry=None) -> torch.Tensor:
     """Propagation scan of one face; see :func:`propagate_face_scan_plain`.
-    ``light_alpha`` is a number or a 0-d tensor. On the card, one
+    ``light_alpha`` is a number or a 0-d tensor; ``carry``, an (H, W)
+    plane or None, the light entering slice 0. On the card, one
     cooperative launch of K4 in the shape :func:`scan_plan` gives."""
     if opacity_scan.device.type == "cpu":
         return propagate_face_scan_plain(opacity_scan, off_px, off_py,
-                                         light_alpha)
+                                         light_alpha, carry)
     op = opacity_scan.contiguous()
     _kernels.check(op, "opacity_scan", torch.float32, op.device)
     K, H, W = op.shape
     if K == 0 or H == 0 or W == 0:
         return torch.empty_like(op)
+    if carry is not None:
+        carry = carry.contiguous()
+    aligned = op.data_ptr() % 16 == 0 and (
+        carry is None or carry.data_ptr() % 16 == 0)
     plan = scan_plan(K, H, W, off_px, *device_limits(op.device),
-                     vec=1 if op.data_ptr() % 16 else None)
-    return _launch_scan(op, plan, off_px, off_py, light_alpha)
+                     vec=None if aligned else 1)
+    return _launch_scan(op, plan, off_px, off_py, light_alpha, carry)
 
 
 def _launch_scan(op: torch.Tensor, plan: ScanPlan, off_px, off_py,
-                 light_alpha) -> torch.Tensor:
+                 light_alpha, carry=None) -> torch.Tensor:
     """One launch of K4 on the contiguous float32 CUDA face ``op`` in the
-    shape of ``plan``, a :func:`scan_plan` of its shape."""
+    shape of ``plan``, a :func:`scan_plan` of its shape; ``carry``, a
+    contiguous (H, W) float32 plane or None, the light entering slice 0."""
     dev = op.device
     K, H, W = op.shape
     if plan.vec == 4 and op.data_ptr() % 16:
         raise ValueError("K4's units of 4 pixels need a 16-byte aligned face")
+    if carry is not None:
+        _kernels.check(carry, "carry", torch.float32, dev)
+        if tuple(carry.shape) != (H, W) or not carry.is_contiguous():
+            raise ValueError(f"carry must be a contiguous ({H}, {W}) plane")
     if plan.blocks > _SCAN_FLAG_COUNT:
         raise ValueError(f"K4: {plan.blocks} blocks exceed the counters")
     if isinstance(light_alpha, torch.Tensor):
@@ -253,7 +266,7 @@ def _launch_scan(op: torch.Tensor, plan: ScanPlan, off_px, off_py,
         base, K, H, W, plan.blocks, plan.rows, plan.slices, plan.reach,
         int(plan.staged), plan.threads, plan.per_thread, plan.vec,
         plan.chunks, plan.smem, ix, float(fx), iy, float(fy), alpha_p,
-        alpha_v, stream,
+        alpha_v, None if carry is None else carry.data_ptr(), stream,
     )
     propagate_face_scan.launches += 1
     return out

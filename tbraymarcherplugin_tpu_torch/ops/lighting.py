@@ -220,29 +220,64 @@ def _const_shift_trilinear(volume: torch.Tensor, light_dims, uvw_offset):
     return torch.einsum("iz,ghz->ghi", sel(2, fz, gz), t)
 
 
-def _gather_trilinear(volume: torch.Tensor, light_dims, shift: _Shift):
-    """:func:`_const_shift_trilinear` at ratio 1 as K3's occluder source
-    computes it: the corners gathered at clamped indices (what the edge
-    pad holds), lerped along z, then y, then x."""
-    vd = volume.shape
+class ZWindow(NamedTuple):
+    """A run of the occluder field's Z planes, from a volume that holds a
+    run of its own Z planes (a slab and its halo): the whole volume's
+    dims, the Z of the held volume's first plane, and the light planes
+    [z0, z1) of the whole light grid to make. Coordinates stay the whole
+    grid's, so a window's planes are the whole field's bit for bit."""
+
+    volume_dims: tuple
+    held_z0: int
+    z0: int
+    z1: int
+
+
+def _trilerp_x_first(corner, shift: _Shift):
+    """The constant-weight lerp of K3's stride-r walk (any ratio above
+    1): along x, then y, then z, the selection matmuls' order."""
+    (gx, gy, gz), (fx, fy, fz) = _weights(shift)
+    t = {(dy, dz): corner(0, dy, dz) * gx + corner(1, dy, dz) * fx
+         for dy in (0, 1) for dz in (0, 1)}
+    u0 = t[0, 0] * gy + t[1, 0] * fy
+    u1 = t[0, 1] * gy + t[1, 1] * fy
+    return u0 * gz + u1 * fz
+
+
+def _gather_trilinear(volume: torch.Tensor, light_dims, shift: _Shift,
+                      window: ZWindow | None = None):
+    """:func:`_const_shift_trilinear` as K3's occluder source computes it:
+    the corners gathered at clamped indices (what the edge pad holds),
+    lerped along z, then y, then x at ratio 1. With a ``window``, the
+    light planes it names from the Z planes ``volume`` holds, at any
+    integer ratio (lerped along x, then y, then z above ratio 1)."""
+    vd = volume.shape if window is None else window.volume_dims
+    spans = [(0, light_dims[0]), (0, light_dims[1]),
+             (0, light_dims[2]) if window is None
+             else (window.z0, window.z1)]
+    held0 = 0 if window is None else window.held_z0
 
     def index(a, d, view):
-        i = torch.arange(light_dims[a], device=volume.device)
+        i = torch.arange(*spans[a], device=volume.device) * shift.r[a]
         i = (i + (shift.i0[a] - shift.pads[a] + d)).clamp(0, vd[a] - 1)
-        return i.view(view)
+        return (i - held0 if a == 2 else i).view(view)
 
     ix = [index(0, d, (-1, 1, 1)) for d in (0, 1)]
     iy = [index(1, d, (1, -1, 1)) for d in (0, 1)]
     iz = [index(2, d, (1, 1, -1)) for d in (0, 1)]
-    return _trilerp(lambda dx, dy, dz: volume[ix[dx], iy[dy], iz[dz]], shift)
+    lerp = _trilerp if all(v == 1 for v in shift.r) else _trilerp_x_first
+    return lerp(lambda dx, dy, dz: volume[ix[dx], iy[dy], iz[dz]], shift)
 
 
-def _light_uvw(light_dims, uvw_offset, device):
-    """(uvw (X, Y, Z, 3), res) of the light voxel centers + the offset."""
+def _light_uvw(light_dims, uvw_offset, device, z_span=None):
+    """(uvw (X, Y, Z, 3), res) of the light voxel centers + the offset;
+    with ``z_span`` = (z0, z1) only those Z planes of the grid."""
     res = to_device(light_dims, device, torch.float32)
+    spans = [(0, light_dims[0]), (0, light_dims[1]),
+             z_span or (0, light_dims[2])]
     grids = torch.meshgrid(
-        *[torch.arange(d, dtype=torch.float32, device=device)
-          for d in light_dims],
+        *[torch.arange(*sp, dtype=torch.float32, device=device)
+          for sp in spans],
         indexing="ij",
     )
     off = to_device(np.asarray(uvw_offset, np.float32), device)
@@ -262,21 +297,27 @@ def _step(step_size) -> float:
 
 
 def _composed(volume, tf_table, windowing_vec4, light_dims, uvw_offset,
-              step_size, clip_center, clip_direction, alpha, parts):
+              step_size, clip_center, clip_direction, alpha, parts,
+              window: ZWindow | None = None):
     """The occluder field in PyTorch operations, the windowed TF alpha
     through ``alpha``; see :func:`occluder_opacity`."""
     dev = volume.device
     ld = tuple(int(d) for d in light_dims)
-    uvw, res = _light_uvw(ld, uvw_offset, dev)
+    uvw, res = _light_uvw(ld, uvw_offset, dev,
+                          None if window is None else window[2:])
     weight = clip_soft_alpha_weight(uvw, clip_center, clip_direction, res)
     inside = ((uvw >= 0.0) & (uvw <= 1.0)).all(-1)
-    shift = _const_shift(volume.shape, ld, uvw_offset)
-    if shift is None:
-        value = trilinear_sample(volume, uvw)
-    elif all(v == 1 for v in shift.r):
-        value = _gather_trilinear(volume, ld, shift)
+    if window is not None:
+        value = _gather_trilinear(volume, ld, _window_shift(
+            window, ld, uvw_offset, volume.shape[2]), window)
     else:
-        value = _const_shift_trilinear(volume, ld, uvw_offset)
+        shift = _const_shift(volume.shape, ld, uvw_offset)
+        if shift is None:
+            value = trilinear_sample(volume, uvw)
+        elif all(v == 1 for v in shift.r):
+            value = _gather_trilinear(volume, ld, shift)
+        else:
+            value = _const_shift_trilinear(volume, ld, uvw_offset)
     opacity = alpha(value, tf_table, windowing_vec4, _step(step_size))
     keep = inside & (weight > 0.0)
     zero = torch.zeros_like(opacity)
@@ -284,9 +325,28 @@ def _composed(volume, tf_table, windowing_vec4, light_dims, uvw_offset,
     return (out, value, torch.where(keep, weight, zero)) if parts else out
 
 
+def _window_shift(window: ZWindow, light_dims, uvw_offset,
+                  held: int) -> _Shift:
+    """The :class:`_Shift` of a window's field; refuses a ratio that is not
+    an integer and a window whose samples leave the ``held`` Z planes."""
+    shift = _const_shift(window.volume_dims, light_dims, uvw_offset)
+    if shift is None:
+        raise ValueError("a Z window needs integer volume/light ratios")
+    base = shift.i0[2] - shift.pads[2]
+    vz = int(window.volume_dims[2])
+    lo = min(max(base + window.z0 * shift.r[2], 0), vz - 1)
+    hi = min(max(base + (window.z1 - 1) * shift.r[2] + 1, 0), vz - 1)
+    if lo < window.held_z0 or hi >= window.held_z0 + held:
+        raise ValueError(f"light planes {window.z0}..{window.z1 - 1} sample "
+                         f"volume planes {lo}..{hi}, beyond the {held} held "
+                         f"from {window.held_z0}")
+    return shift
+
+
 def occluder_opacity_plain(volume, tf_table, windowing_vec4, light_dims,
                            uvw_offset, step_size, clip_center,
-                           clip_direction, parts: bool = False):
+                           clip_direction, parts: bool = False,
+                           window: ZWindow | None = None):
     """:func:`occluder_opacity` in plain PyTorch, one operation per step of
     the kernel. The sample: at ratio 1 the kernel's clamped corners and
     lerp order; at integer ratios above 1 the selection matmuls
@@ -294,10 +354,12 @@ def occluder_opacity_plain(volume, tf_table, windowing_vec4, light_dims,
     meets within an ulp; at other ratios one trilinear fetch per voxel
     (`trilinear_sample`). The clip weight is
     `sampling.clip_soft_alpha_weight`, whose distance and norm the kernel
-    sums in its own order (an ulp of the distance apart)."""
+    sums in its own order (an ulp of the distance apart). With a
+    ``window``, its light planes from the Z planes ``volume`` holds, the
+    corners gathered as the kernel gathers them at every integer ratio."""
     return _composed(volume, tf_table, windowing_vec4, light_dims,
                      uvw_offset, step_size, clip_center, clip_direction,
-                     windowed_tf_alpha_plain, parts)
+                     windowed_tf_alpha_plain, parts, window)
 
 
 def _on(x, device) -> bool:
@@ -320,12 +382,13 @@ class _OccluderGeometry(ctypes.Structure):
                 ("res", ctypes.c_float * 3), ("off", ctypes.c_float * 3),
                 ("clip", ctypes.c_float * 6), ("win", ctypes.c_float * 4),
                 ("clip_dev", ctypes.c_void_p),
-                ("x_first", ctypes.c_int)]
+                ("x_first", ctypes.c_int), ("oz", ctypes.c_int * 2),
+                ("vz", ctypes.c_int * 2)]
 
 
 def occluder_opacity(volume, tf_table, windowing_vec4, light_dims,
                      uvw_offset, step_size, clip_center, clip_direction,
-                     parts: bool = False):
+                     parts: bool = False, window: ZWindow | None = None):
     """Occluder opacity of one face (`AddDirLightShader.usf:84-114`): the
     volume sampled at each light voxel center offset toward the light,
     windowed TF alpha, times the soft clip weight; zero where the offset
@@ -340,13 +403,28 @@ def occluder_opacity(volume, tf_table, windowing_vec4, light_dims,
     clip plane given as tensors on the card is read there, so nothing is
     copied between host and device. At other ratios on the card the
     PyTorch composition with K3 on its values. For CPU tensors
-    :func:`occluder_opacity_plain`."""
+    :func:`occluder_opacity_plain`.
+
+    ``window`` (:class:`ZWindow`, integer ratios only): ``volume`` holds
+    the Z planes ``window.held_z0`` onward of a volume of
+    ``window.volume_dims`` (a slab and its halo), and the result is the
+    field's light planes [``window.z0``, ``window.z1``), (X, Y, z1 - z0):
+    one launch of K3 that reads the held planes in place."""
     if volume.device.type == "cpu":
         return occluder_opacity_plain(volume, tf_table, windowing_vec4,
                                       light_dims, uvw_offset, step_size,
-                                      clip_center, clip_direction, parts)
+                                      clip_center, clip_direction, parts,
+                                      window)
     ld = tuple(int(d) for d in light_dims)
-    shift = _const_shift(volume.shape, ld, uvw_offset)
+    if window is not None:
+        shift = _window_shift(window, ld, uvw_offset, volume.shape[2])
+        vd, oz = tuple(int(d) for d in window.volume_dims), (
+            window.z0, window.z1 - window.z0)
+        vz = (window.held_z0, int(volume.shape[2]))
+    else:
+        shift = _const_shift(volume.shape, ld, uvw_offset)
+        vd, oz = tuple(volume.shape), (0, ld[2])
+        vz = (0, vd[2])
     if shift is None:
         return _composed(volume, tf_table, windowing_vec4, ld, uvw_offset,
                          step_size, clip_center, clip_direction,
@@ -360,14 +438,15 @@ def occluder_opacity(volume, tf_table, windowing_vec4, light_dims,
         raise ValueError(f"tf_table must be (256, 4), got {tf_table.shape}")
     g, f = _weights(shift)
     geo = _OccluderGeometry(
-        vd=(ctypes.c_int * 3)(*volume.shape), ld=(ctypes.c_int * 3)(*ld),
+        vd=(ctypes.c_int * 3)(*vd), ld=(ctypes.c_int * 3)(*ld),
         base=(ctypes.c_int * 3)(*(i - p for i, p in zip(shift.i0,
                                                         shift.pads))),
         r=(ctypes.c_int * 3)(*shift.r),
         f=(ctypes.c_float * 3)(*f), g=(ctypes.c_float * 3)(*g),
         res=(ctypes.c_float * 3)(*ld),
         off=(ctypes.c_float * 3)(*np.asarray(uvw_offset, np.float32)),
-        x_first=int(any(v != 1 for v in shift.r)))
+        x_first=int(any(v != 1 for v in shift.r)),
+        oz=(ctypes.c_int * 2)(*oz), vz=(ctypes.c_int * 2)(*vz))
     # host data goes by value: an upload would wait for the queued work
     win = clip = None
     if _on(windowing_vec4, dev):
@@ -380,7 +459,8 @@ def occluder_opacity(volume, tf_table, windowing_vec4, light_dims,
         geo.clip_dev = clip.data_ptr()
     else:
         geo.clip[:] = _floats(clip_center, 3) + _floats(clip_direction, 3)
-    out = torch.empty(ld, dtype=torch.float32, device=dev)
+    out = torch.empty((ld[0], ld[1], oz[1]), dtype=torch.float32,
+                      device=dev)
     values = torch.empty_like(out) if parts else None
     keep_weight = torch.empty_like(out) if parts else None
     _kernels.launch(

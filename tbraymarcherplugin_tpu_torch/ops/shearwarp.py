@@ -296,15 +296,18 @@ def _volume_planes(vol_t: torch.Tensor, plan: ShearWarpPlan,
 
 
 def _resample_matrices(a, b, dim: int, n: int, dtype,
-                       nearest: bool = False, i0: int = 0) -> torch.Tensor:
+                       nearest: bool = False, i0: int = 0,
+                       rows=None) -> torch.Tensor:
     """Banded linear-interpolation matrices S (B, dim, n):
     S[p, m, i] = hat(clip(a[p] + b[p] * (i0 + i), 0, dim - 1) - m); with
     ``nearest`` a one-hot selection of floor(clip(...) + 0.5) (the octree
-    mode's nearest texel)."""
+    mode's nearest texel). ``rows`` = (m0, m1): only the rows m0 .. m1 - 1
+    (a slab's share of the taps), (B, m1 - m0, n)."""
     i = torch.arange(i0, i0 + n, dtype=torch.float32, device=a.device)
     v = a[:, None] + b[:, None] * i[None, :]
     vc = v.clamp(0.0, float(dim - 1))
-    m = torch.arange(dim, dtype=torch.float32, device=a.device)
+    m = torch.arange(*(rows or (dim,)), dtype=torch.float32,
+                     device=a.device)
     if nearest:
         sel = torch.floor(vc + 0.5)
         return (sel[:, None, :] == m[None, :, None]).to(dtype)

@@ -6,7 +6,9 @@ Counterpart of `tbraymarcherplugin_tpu/parallel/` (``shard_map`` over a
 named mesh): one process per device, a mesh axis is a process group
 (``mesh.get_group(axis)``), NCCL on the card and gloo on the CPU
 (`distributed.initialize_multihost`). Every rank is handed the same global
-inputs, works on its share and gets the global result.
+inputs, works on its share and gets the global result, except in the
+slab-local rebuild (`compute_illumination_sharded_v2`), which takes the
+rank's Z slab and returns its Z chunk.
 """
 
 from .mesh import make_mesh, replicated, sharded_along
@@ -21,14 +23,12 @@ from .shearwarp_sharding import (
     shearwarp_lit_sharded_diff,
 )
 from .slab_sharding import (
-    compute_illumination_sharded,
     compute_illumination_sharded_v2,
     march_lit_slab_ring,
     march_lit_slab_sharded,
 )
 
 __all__ = [
-    "compute_illumination_sharded",
     "compute_illumination_sharded_v2",
     "make_mesh",
     "make_sharded_train_step",

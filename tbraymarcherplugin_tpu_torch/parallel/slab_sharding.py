@@ -3,8 +3,9 @@ ring and the sharded illumination (forward only).
 
 Counterpart of `tbraymarcherplugin_tpu/parallel/slab_sharding.py`. Every
 rank owns the Z slab ``[rank * Z / n, (rank + 1) * Z / n)`` of the volume
-on the mesh axis ``"slab"`` (the functions take the global volume and each
-rank reads only its slab); the planes a slab's trilinear fetches need
+on the mesh axis ``"slab"`` (the marches take the global volume and each
+rank reads only its slab; the rebuild takes the rank's slab alone); the
+planes a slab's trilinear fetches need
 beyond it come from its neighbours as a halo, over
 ``torch.distributed.batch_isend_irecv`` rings.
 
@@ -16,38 +17,36 @@ beyond it come from its neighbours as a halo, over
 - :func:`march_lit_slab_ring`: the live per-ray state (rgba, terminated)
   hops from slab owner to slab owner in each ray's Z order, so early
   termination is exact (`ops.march.march_lit`'s semantics).
-- :func:`compute_illumination_sharded`: the occluder opacity is computed
-  slab by slab (from a halo), all-gathered, and each face's scan runs
-  replicated (`ops.lighting.scan_one_face`, kernel K4 on the card).
-- :func:`compute_illumination_sharded_v2`: no 3D field is gathered: Z
-  faces scan as a ring of carries, X and Y faces gather one slice a step;
-  every rank returns its own Z chunk. Its scans are plain torch.
+- :func:`compute_illumination_sharded_v2`: slab-local, from the rank's
+  own slab (:func:`hold_slab` keeps its halo): K3 on the slab, the Z
+  faces' K4 as a ring of carries, the X and Y faces' K4 in chunks with a
+  light halo exchanged between them; every rank returns its own Z chunk.
+  The sharded `Renderer` rebuilds through it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from ..models.pipeline import LightPlan, RenderParams, _windowing_vec4
 from ..ops import lighting as L
 from ..ops.compositing import EARLY_TERMINATION_ALPHA, accumulate, compose_segments
-from ..ops.light_scan import _alpha_tensor, shift_2d_bilinear_border
+from ..ops.light_scan import _split_offset, propagate_face_scan
 from ..ops.march import _as_device, _loop_bound, _march_state
 from ..ops.rays import RayBatch
 from ..ops.sampling import (
     VOLUME_DENSITY,
-    clip_soft_alpha_weight,
     is_clipped,
     sample_windowed_transfer_function,
     trilinear_sample,
 )
-from ..ops.tf_alpha import windowed_tf_alpha
+from ..utils.profiling import (HALO, LIGHT_HALO, LIGHT_RING, LIGHT_SCAN,
+                               OCCLUDER, span)
 from .overlap import all_gather_cat
 
 
@@ -278,235 +277,368 @@ def march_lit_slab_ring(mesh, volume, tf_table, light_volume, rays: RayBatch,
     return out.reshape(*rays.thickness.shape, 4)
 
 
-def _light_grid(light_dims, z0: int, lz: int, uvw_offset, device):
-    """(uvw (LX, LY, lz, 3), resolution) of light voxels z0 .. z0 + lz - 1,
-    offset toward the light, as `ops.lighting.occluder_opacity_volume`
-    computes them."""
-    res = torch.tensor(light_dims, dtype=torch.float32, device=device)
-    ranges = [torch.arange(d, dtype=torch.float32, device=device)
-              for d in light_dims[:2]]
-    ranges.append(torch.arange(lz, dtype=torch.float32, device=device) + z0)
-    grids = torch.meshgrid(*ranges, indexing="ij")
-    off = torch.as_tensor(np.asarray(uvw_offset, np.float32), device=device)
-    return (torch.stack(grids, dim=-1) + 0.5) / res + off, res
-
-
-def _occluder(value, uvw, res, fp, params, win, cc, cd):
-    """The occluder opacity of one face's voxels from their volume values
-    (windowed TF alpha, kernel K3 on the card, times the soft clip
-    weight; zero where the offset sample leaves the cube)."""
-    aw = clip_soft_alpha_weight(uvw, cc, cd, res)
-    inside = ((uvw >= 0.0) & (uvw <= 1.0)).all(-1)
-    step = float(np.float32(fp.step_size) * np.float32(VOLUME_DENSITY))
-    opacity = windowed_tf_alpha(value.contiguous(), params.tf_table, win,
-                                step)
-    return torch.where(inside & (aw > 0.0), opacity * aw,
-                       torch.zeros_like(opacity))
-
-
-def _light_split(params: RenderParams, light_dims, n: int):
-    ld = tuple(int(d) for d in light_dims)
-    vd = tuple(int(d) for d in params.volume.shape)
-    if ld[2] % n or vd[2] % n:
-        raise ValueError(f"light Z {ld[2]} and volume Z {vd[2]} must divide "
-                         f"the slab axis ({n})")
-    return ld, vd, ld[2] // n, vd[2] // n
-
-
 def _halo_depth(vd, ld) -> int:
-    """The Z halo the constant-shift sampling needs: the largest shift,
+    """The Z halo an occluder sample at a face's offset reads beyond the
+    light planes it is for: the largest shift,
     |c_z| <= 0.5 rz - 0.5 + rz ld_z / min(ld), one trilinear corner and
     rz - 1 of stride end."""
     rz = vd[2] // ld[2]
     return int(math.ceil(0.5 * rz - 0.5 + rz * ld[2] / min(ld))) + 1 + (rz - 1)
 
 
+# X and Y faces: K4 runs on chunks of at most this many slices; before
+# each chunk, the columns that the per-slice shift carries across a slab
+# boundary come from the ranks that own them, for a halo as wide as the
+# chunk's slices times the shift's reach (PERF.md: the choice and the
+# exchanges it costs)
+LIGHT_HALO_SLICES = 16
+# slices of a scanned chunk thresholded and added at a time
+_ADD_SLICES = 64
+
+
+class HeldSlab(NamedTuple):
+    """A rank's Z slab [z0, z1) of a volume of ``dims`` and the halo
+    planes it holds: ``data`` is (X, Y, lo + (z1 - z0) + hi) float32,
+    contiguous; each side's halo is ``depth`` planes, cut at the
+    volume's ends."""
+
+    data: torch.Tensor
+    z0: int
+    z1: int
+    lo: int
+    hi: int
+    depth: int
+    dims: tuple
+
+    @property
+    def slab(self) -> torch.Tensor:
+        """The slab itself, (X, Y, z1 - z0): a view of ``data``."""
+        return self.data[:, :, self.lo:self.lo + self.z1 - self.z0]
+
+    @property
+    def held_z0(self) -> int:
+        """The global Z of ``data``'s first plane."""
+        return self.z0 - self.lo
+
+
+def z_ranges(total: int, n: int) -> list:
+    """Each rank's [z0, z1) of ``total`` Z planes split ``n`` ways."""
+    return [(r * total // n, (r + 1) * total // n) for r in range(n)]
+
+
+def _gather_planes(local: torch.Tensor, own: list, wants: list, group,
+                   rank: int, name: str, args: str = ""):
+    """The planes ``wants[rank]`` = [a, b) along the last dim, from the
+    ranks that own them, where rank q holds the planes ``own[q]`` (this
+    rank's in ``local``) and wants the planes ``wants[q]``: one
+    ``batch_isend_irecv`` in which each rank sends every other the part of
+    its planes that rank wants, in a span ``name`` whose args end in the
+    bytes this rank sent."""
+    a, b = wants[rank]
+    o0, o1 = own[rank]
+    sends, recvs = [], []
+    for q, ((w0, w1), (q0, q1)) in enumerate(zip(wants, own)):
+        if q == rank:
+            continue
+        lo, hi = max(w0, o0), min(w1, o1)
+        if lo < hi:
+            sends.append((q, lo - o0, hi - o0))
+        lo, hi = max(a, q0), min(b, q1)
+        if lo < hi:
+            recvs.append((q, lo - a, hi - lo))
+    plane = local[..., :1].numel() * local.element_size()
+    sent = sum(hi - lo for _, lo, hi in sends) * plane
+    out = local.new_empty(local.shape[:-1] + (max(b - a, 0),))
+    with span(name, f"{args}bytes={sent}"):
+        ops, bufs = [], []
+        for q, lo, hi in sends:
+            ops.append(dist.P2POp(dist.isend,
+                                  local[..., lo:hi].contiguous(),
+                                  dist.get_global_rank(group, q), group))
+        for q, at, m in recvs:
+            buf = out.new_empty(out.shape[:-1] + (m,))
+            bufs.append((at, buf))
+            ops.append(dist.P2POp(dist.irecv, buf,
+                                  dist.get_global_rank(group, q), group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for at, buf in bufs:
+            out[..., at:at + buf.shape[-1]] = buf
+    return out
+
+
 @torch.no_grad()
-def compute_illumination_sharded(mesh, params: RenderParams,
-                                 light_plans: Sequence[LightPlan],
-                                 clip_center, clip_direction, light_dims,
-                                 axis: str = "slab", low_cutoff: bool = True,
-                                 high_cutoff: bool = True) -> torch.Tensor:
-    """The illumination volume with the occluder-opacity fetches sharded
-    along Z -> ``light_dims`` on every rank.
-
-    Each rank evaluates the opacity of its Z slab of the light grid from
-    its volume slab and a halo, the slabs are all-gathered, and each
-    face's scan runs replicated (K4 on the card). The samples are those of
-    `ops.lighting.occluder_opacity_volume`: the constant-shift resample
-    where the volume/light ratios are integers and the slab is at least
-    the shift's halo deep (``k`` planes each side), else a trilinear fetch
-    per voxel from the slab and the next rank's first plane (the JAX
-    package's v1 samples per voxel always). Matches
-    `models.pipeline.compute_illumination`."""
+def hold_slab(mesh, slab: torch.Tensor, dims, depth: int,
+              axis: str = "slab") -> HeldSlab:
+    """This rank's Z slab (X, Y, Z / n) of a volume of ``dims`` with
+    ``depth`` planes of the other ranks' on either side (fewer at the
+    volume's ends), exchanged once (span ``tbr.halo``); a collective of
+    the mesh axis. Refuses a slab of another shape."""
     group, n, rank = _axis(mesh, axis)
-    ld, vd, lz, vz = _light_split(params, light_dims, n)
-    win = _windowing_vec4(params, low_cutoff, high_cutoff)
-    slab = _slab(params.volume, rank, n)
+    dims = tuple(int(d) for d in dims)
+    if dims[2] % n:
+        raise ValueError(f"Z = {dims[2]} must divide the slab axis ({n})")
+    own = z_ranges(dims[2], n)
+    z0, z1 = own[rank]
+    if tuple(slab.shape) != (dims[0], dims[1], z1 - z0):
+        raise ValueError(
+            f"rank {rank} of {n} holds Z planes {z0}..{z1 - 1} of a "
+            f"{dims} volume: a slab of {(dims[0], dims[1], z1 - z0)}, got "
+            f"{tuple(slab.shape)}")
+    depth = int(depth)
+    below = _gather_planes(slab, own, [(max(q0 - depth, 0), q0)
+                                       for q0, _ in own], group, rank, HALO)
+    above = _gather_planes(slab, own, [(q1, min(q1 + depth, dims[2]))
+                                       for _, q1 in own], group, rank, HALO)
+    data = torch.cat([below, slab, above], dim=2).contiguous()
+    return HeldSlab(data, z0, z1, below.shape[2], above.shape[2], depth,
+                    dims)
+
+
+def _xy_face_halo(fp, light_dims, zc: int) -> tuple:
+    """(slices a chunk, halo columns, halo above) of the X or Y face plan
+    ``fp`` on light chunks of ``zc`` columns: the columns (Z) its
+    per-slice shift reads lie on one side, ``reach`` of them a slice; a
+    chunk of h slices (at most :data:`LIGHT_HALO_SLICES`, and a halo at
+    most half a chunk's columns where a slice reaches fewer) reads a halo
+    of h * reach columns (rounded up to 4, so that K4 keeps its units of
+    4 pixels)."""
+    tdims = tuple(light_dims[a] for a in L.transposed_axes(fp.face))
+    iy, _ = _split_offset(np.float32(fp.uv_offset[1])
+                          * np.float32(tdims[1]))
+    reach = iy + 1 if iy >= 0 else -iy
+    h = min(LIGHT_HALO_SLICES, tdims[2], max(1, zc // 2 // reach))
+    return h, -(-h * reach // 4) * 4, iy >= 0
+
+
+def held_depth(light_plans, volume_dims, light_dims, n: int) -> int:
+    """The volume halo a rank must hold for the rebuild of
+    ``light_plans``: the occluder's sample offset (:func:`_halo_depth`),
+    and for an X or Y face its chunks' light halo (:func:`_xy_face_halo`)
+    in volume planes."""
+    vd = tuple(int(d) for d in volume_dims)
+    ld = tuple(int(d) for d in light_dims)
     k = _halo_depth(vd, ld)
-    if all(v % l == 0 for v, l in zip(vd, ld)) and k <= vz:
-        slab_halo = _halo_z_k(slab, group, rank, n, k)
-
-        def values(uvw, uvw_offset):
-            return _local_const_shift_trilinear(slab_halo, k, vd, ld, lz,
-                                                uvw_offset)
-    else:
-        slab_halo = _halo_exchange_z(slab, group, rank, n)
-
-        def values(uvw, uvw_offset):
-            return _trilinear_slab(slab_halo, uvw, vd, rank * vz)
-    lv = torch.zeros(ld, dtype=torch.float32, device=params.volume.device)
-    for li, plan in enumerate(light_plans):
+    depth = k
+    for plan in light_plans:
         for fp in plan.face_plans:
-            uvw, res = _light_grid(ld, rank * lz, lz, fp.uvw_offset,
-                                   params.volume.device)
-            opac = _occluder(values(uvw, fp.uvw_offset), uvw, res, fp,
-                             params, win, clip_center, clip_direction)
-            lv = lv + L.scan_one_face(
-                all_gather_cat(opac, 2, group), fp.uv_offset,
-                params.light_intensities[li] * fp.light_alpha, fp.face, ld,
-                apply_write_threshold=False)
-    return lv
+            if L.face_axis(fp.face) != 2:
+                _, cols, _ = _xy_face_halo(fp, ld, ld[2] // n)
+                depth = max(depth, k + cols * (vd[2] // ld[2]))
+    return depth
 
 
-def _halo_z_k(slab: torch.Tensor, group, rank: int, n: int, k: int):
-    """``slab`` with ``k`` Z planes of its neighbours on either side (the
-    global ends repeat their boundary plane: clamp-to-edge)."""
-    recv_lo = _ring_shift(slab[:, :, -k:], group, 1)
-    recv_hi = _ring_shift(slab[:, :, :k], group, -1)
-    lo = slab[:, :, :1].expand(-1, -1, k) if rank == 0 else recv_lo
-    hi = slab[:, :, -1:].expand(-1, -1, k) if rank == n - 1 else recv_hi
-    return torch.cat([lo, slab, hi], dim=2)
+def _add_thresholded(target_view, res, apply_write_threshold: bool,
+                     reverse: bool = False):
+    """``target_view += res`` (``res`` reversed along dim 0 with
+    ``reverse``), the write threshold applied to ``res``
+    (`ops.lighting.scan_one_face`'s), a few slices at a time so that the
+    temporaries stay small; both are indexed by slices along dim 0."""
+    n = res.shape[0]
+    for a in range(0, n, _ADD_SLICES):
+        r = res[a:a + _ADD_SLICES]
+        if apply_write_threshold:
+            r = torch.where(r.abs() > L.WRITE_SKIP_THRESHOLD, r,
+                            torch.zeros_like(r))
+        if reverse:
+            target_view[n - a - r.shape[0]:n - a] += r.flip(0)
+        else:
+            target_view[a:a + r.shape[0]] += r
 
 
-def _local_const_shift_trilinear(slab_halo, k: int, vd, ld, lz: int,
-                                 uvw_offset) -> torch.Tensor:
-    """The slab's share of `ops.lighting._const_shift_trilinear`: light
-    voxel g samples the volume at g * r + c for a constant c per axis.
-    ``slab_halo`` is this rank's volume slab with a ``k``-plane halo on
-    either side; light and volume slabs are aligned, so corner dz of local
-    light plane 0 starts at ``k + floor(c_z) + dz`` on every rank. X and Y
-    are whole (edge-padded as the single-device path pads them)."""
-    r = tuple(v // l for v, l in zip(vd, ld))
-    pads = tuple(r[a] + 2 + -(-r[a] * ld[a] // min(ld)) for a in range(3))
-    vp = F.pad(slab_halo[None, None],
-               (0, 0, pads[1], pads[1], pads[0], pads[0]),
-               mode="replicate")[0, 0]
-    off = np.asarray(uvw_offset, np.float32)
-    i0, frac = [], []
-    for a in range(3):
-        c = np.float32(0.5 * r[a] - 0.5) + off[a] * np.float32(vd[a])
-        f = np.floor(c)
-        frac.append(np.float32(c - f))
-        base, edge = (pads[a], 2 * pads[a]) if a < 2 else (k, 2 * k)
-        i0.append(int(np.clip(int(f) + base, 0, edge + r[a] - 2)))
-    counts = (ld[0], ld[1], lz)
+def _z_face(ctx, fp, alpha: float, target):
+    """One Z face of one light into ``target``, this rank's light chunk:
+    K3 on the rank's slab, then K4 on its chunk with the light entering
+    it from the upstream rank, whose carry out hops on (the ring, span
+    ``tbr.light_ring``)."""
+    group, n, rank = ctx.group, ctx.n, ctx.rank
+    direction = L.face_direction(fp.face)
+    with span(OCCLUDER):
+        opac = L.occluder_opacity(
+            ctx.held.data, ctx.tf_table, ctx.win, ctx.ld, fp.uvw_offset,
+            fp.step_size, ctx.cc, ctx.cd, window=ctx.window(*ctx.lz))
+    with span(LIGHT_SCAN, fp.face):
+        tdims = ctx.ld
+        uv = np.asarray(fp.uv_offset, np.float32)
+        off_px = uv[0] * np.float32(tdims[0])
+        off_py = uv[1] * np.float32(tdims[1])
+        if direction == -1:
+            opac = opac.flip(2)
+        scan = opac.movedim(2, 0).contiguous()
+        del opac
+        up, down = rank - direction, rank + direction
+        plane = scan[0].numel() * scan.element_size()
+        carry = None
+        if 0 <= up < n:
+            with span(LIGHT_RING, f"face={fp.face} bytes=0"):
+                carry = scan.new_empty(scan.shape[1:])
+                dist.recv(carry, dist.get_global_rank(group, up), group)
+                if carry.is_cuda:  # the wait for the upstream ranks
+                    torch.cuda.current_stream(carry.device).synchronize()
+        res = propagate_face_scan(scan, off_px, off_py, alpha, carry)
+        del scan
+        if 0 <= down < n:
+            with span(LIGHT_RING, f"face={fp.face} bytes={plane}"):
+                dist.send(res[-1].contiguous(),
+                          dist.get_global_rank(group, down), group)
+        _add_thresholded(target.permute(2, 0, 1), res, ctx.threshold,
+                         reverse=direction == -1)
 
-    def corner(dx, dy, dz):
-        sl = tuple(slice(i + d, i + d + (m - 1) * s + 1, s) for i, d, m, s in
-                   zip(i0, (dx, dy, dz), counts, r))
-        return vp[sl]
 
-    one = np.float32(1.0)
-    gx, gy, gz = (float(one - f) for f in frac)
-    fx, fy, fz = (float(f) for f in frac)
-    c00 = corner(0, 0, 0) * gz + corner(0, 0, 1) * fz
-    c01 = corner(0, 1, 0) * gz + corner(0, 1, 1) * fz
-    c10 = corner(1, 0, 0) * gz + corner(1, 0, 1) * fz
-    c11 = corner(1, 1, 0) * gz + corner(1, 1, 1) * fz
-    c0 = c00 * gy + c01 * fy
-    c1 = c10 * gy + c11 * fy
-    return c0 * gx + c1 * fx
+def _xy_face(ctx, fp, alpha: float, target):
+    """One X or Y face of one light into ``target``: the scan axis (X or
+    Y) is whole on every rank and the columns (Z) are sharded, so each
+    rank scans its own Z band of every slice, in chunks of slices whose
+    light halo (the columns the shift carries in from the other ranks'
+    bands) is exchanged before each chunk (span ``tbr.light_halo``) and
+    computed again by the rank itself within the chunk, from the halo's
+    occluder field (K3 on the held volume halo)."""
+    group, rank = ctx.group, ctx.rank
+    face = fp.face
+    ax = L.transposed_axes(face)
+    tdims = tuple(ctx.ld[a] for a in ax)
+    uv = np.asarray(fp.uv_offset, np.float32)
+    off_px = uv[0] * np.float32(tdims[0])
+    off_py = uv[1] * np.float32(tdims[1])
+    h, cols, above = _xy_face_halo(fp, ctx.ld, ctx.lz[1] - ctx.lz[0])
+    z0, z1 = ctx.lz
+    LZ = ctx.ld[2]
+    own = z_ranges(LZ, ctx.n)
+    if above:
+        ext = (z0, min(z1 + cols, LZ))
+        wants = [(q1, min(q1 + cols, LZ)) for _, q1 in own]
+    else:
+        ext = (max(z0 - cols, 0), z1)
+        wants = [(max(q0 - cols, 0), q0) for q0, _ in own]
+    at = z0 - ext[0]  # the own columns' first in the band
+    zc = z1 - z0
+    with span(OCCLUDER):
+        opac = L.occluder_opacity(
+            ctx.held.data, ctx.tf_table, ctx.win, ctx.ld, fp.uvw_offset,
+            fp.step_size, ctx.cc, ctx.cd, window=ctx.window(*ext))
+    with span(LIGHT_SCAN, face):
+        # scan order (K, H, W): the scan axis, the other of X and Y, Z
+        scan = opac if L.face_axis(face) == 0 else opac.permute(1, 0, 2)
+        view = target if L.face_axis(face) == 0 else target.permute(1, 0, 2)
+        if L.face_direction(face) == -1:
+            scan = scan.flip(0)
+        scan = scan.contiguous()
+        del opac
+        K = scan.shape[0]
+        carry = None
+        for k0 in range(0, K, h):
+            res = propagate_face_scan(scan[k0:k0 + h], off_px, off_py,
+                                      alpha, carry)
+            mine = res[:, :, at:at + zc]
+            if k0 + h < K:
+                halo = _gather_planes(res[-1, :, at:at + zc], own, wants,
+                                      group, rank, LIGHT_HALO,
+                                      f"face={face} ")
+                carry = torch.empty_like(res[-1])
+                carry[:, at:at + zc] = mine[-1]
+                w0 = wants[rank][0] - ext[0]
+                carry[:, w0:w0 + halo.shape[1]] = halo
+            if L.face_direction(face) == -1:
+                _add_thresholded(view[K - k0 - mine.shape[0]:K - k0], mine,
+                                 ctx.threshold, reverse=True)
+            else:
+                _add_thresholded(view[k0:k0 + mine.shape[0]], mine,
+                                 ctx.threshold)
+
+
+class _Rebuild(NamedTuple):
+    """What every face of a sharded rebuild reads."""
+
+    group: object
+    n: int
+    rank: int
+    held: HeldSlab
+    ld: tuple  # the whole light grid
+    lz: tuple  # this rank's light planes [z0, z1)
+    tf_table: torch.Tensor
+    win: object
+    cc: object
+    cd: object
+    threshold: bool
+
+    def window(self, z0: int, z1: int) -> L.ZWindow:
+        return L.ZWindow(self.held.dims, self.held.held_z0, z0, z1)
 
 
 @torch.no_grad()
 def compute_illumination_sharded_v2(mesh, params: RenderParams,
                                     light_plans: Sequence[LightPlan],
                                     clip_center, clip_direction, light_dims,
+                                    windowing_vec4=None,
                                     axis: str = "slab",
-                                    low_cutoff: bool = True,
-                                    high_cutoff: bool = True) -> torch.Tensor:
-    """Fully sharded illumination: no 3D field is gathered. Returns this
-    rank's Z chunk of the light volume, (LX, LY, LZ / n); the chunks in
-    rank order are `models.pipeline.compute_illumination`'s volume.
+                                    apply_write_threshold: bool = False,
+                                    held: HeldSlab | None = None,
+                                    out: torch.Tensor | None = None,
+                                    per_light: bool = False) -> torch.Tensor:
+    """Slab-local illumination: this rank's Z chunk (LX, LY, LZ / n) of the
+    light volume from its Z slab of the volume, ``params.volume`` (X, Y,
+    Z / n); the chunks in rank order are the single-device rebuild's
+    light volume, each face's light bit for bit. No tensor of the whole
+    volume's size exists on any rank.
 
-    - The occluder field of the rank's light slab comes from its volume
-      slab with a ``k``-plane halo (ring exchange, the global ends
-      replicated) by the constant-shift sampling; volume and light dims
-      must have integer ratios.
-    - Z faces scan as a ring: the 2D carry hops owner to owner in
-      propagation order (`AddDirLightShader.usf:68-128` lifted to the mesh
-      axis).
-    - X and Y faces scan their whole axis on every rank, all-gathering
-      only the current slice (its Z extent is sharded) each step, and keep
-      their own Z chunk.
+    - The occluder field of a face is one launch of K3's occluder source
+      on the rank's slab and its halo (``held``, :func:`hold_slab`; held
+      here for the call when not given), for its light planes and, on an
+      X or Y face, the light halo's.
+    - A Z face is scanned by K4 on the rank's chunk, with the light
+      entering it as the carry from the upstream rank in the face's
+      propagation order: a ring (span ``tbr.light_ring``).
+    - An X or Y face: :func:`_xy_face` (K4 in chunks of
+      :data:`LIGHT_HALO_SLICES` slices, the light halo exchanged between
+      them, span ``tbr.light_halo``).
 
-    The scans are plain torch (the JAX package's are XLA): K4 takes no
-    carry in and no gather between slices.
-    """
+    Every face's light adds into the chunk in turn, as
+    `models.pipeline.compute_illumination` sums them, or with
+    ``per_light`` each light's faces into its contribution first and the
+    contributions into the chunk, as `Renderer.reset_all_lights` does
+    (the same for one light), each face's light gated by the write
+    threshold when ``apply_write_threshold``. Volume
+    and light dims must have integer ratios. ``windowing_vec4``: the
+    window (center, width, low cutoff, high cutoff; host numbers go to K3
+    by value), by default ``params``'s center and width with both cutoffs
+    on. ``out``: the chunk to write (overwritten), else a new one."""
     group, n, rank = _axis(mesh, axis)
-    ld, vd, lz, vz = _light_split(params, light_dims, n)
+    ld = tuple(int(d) for d in light_dims)
+    if ld[2] % n:
+        raise ValueError(f"light Z {ld[2]} must divide the slab axis ({n})")
+    slab = params.volume
+    vz = slab.shape[2]
+    vd = (int(slab.shape[0]), int(slab.shape[1]), vz * n)
     if any(v % l for v, l in zip(vd, ld)):
-        raise ValueError("v2 needs integer volume/light resolution ratios")
-    k = _halo_depth(vd, ld)
-    if k > vz:
-        raise ValueError("Z slab thinner than the occluder-offset halo "
-                         "reach; use fewer shards or "
-                         "compute_illumination_sharded (v1)")
-    dev = params.volume.device
-    win = _windowing_vec4(params, low_cutoff, high_cutoff)
-    slab_halo = _halo_z_k(_slab(params.volume, rank, n), group, rank, n, k)
-    lv_local = torch.zeros((ld[0], ld[1], lz), dtype=torch.float32,
-                           device=dev)
+        raise ValueError("the sharded rebuild needs integer volume/light "
+                         "resolution ratios")
+    need = held_depth(light_plans, vd, ld, n)
+    if held is None or held.depth < need:
+        held = hold_slab(mesh, slab, vd, need, axis)
+    lz = z_ranges(ld[2], n)[rank]
+    if windowing_vec4 is None:
+        windowing_vec4 = _windowing_vec4(params, True, True)
+    ctx = _Rebuild(group, n, rank, held, ld, lz, params.tf_table,
+                   windowing_vec4, clip_center, clip_direction,
+                   apply_write_threshold)
+    shape = (ld[0], ld[1], lz[1] - lz[0])
+    if out is None:
+        out = torch.zeros(shape, dtype=torch.float32, device=slab.device)
+    else:
+        out.zero_()
+    contrib = None
     for li, plan in enumerate(light_plans):
+        if li > 0 and per_light and contrib is None:
+            contrib = torch.empty_like(out)
+        target = contrib.zero_() if contrib is not None else out
         for fp in plan.face_plans:
-            uvw, res = _light_grid(ld, rank * lz, lz, fp.uvw_offset, dev)
-            value = _local_const_shift_trilinear(slab_halo, k, vd, ld, lz,
-                                                 fp.uvw_offset)
-            opac = _occluder(value, uvw, res, fp, params, win, clip_center,
-                             clip_direction)
-            ax = L.transposed_axes(fp.face)
-            direction = L.face_direction(fp.face)
-            tdims = (ld[ax[0]], ld[ax[1]], ld[ax[2]])
-            uv = np.asarray(fp.uv_offset, np.float32)
-            off_px = uv[0] * np.float32(tdims[0])
-            off_py = uv[1] * np.float32(tdims[1])
-            alpha = _alpha_tensor(
-                params.light_intensities[li] * fp.light_alpha, dev)
-            opac_t = opac.permute(ax)
-            if direction == -1:
-                opac_t = opac_t.flip(2)
-            xs = opac_t.movedim(2, 0)  # scan order
-
-            def update(carry, sl):
-                return shift_2d_bilinear_border(carry, off_px, off_py,
-                                                alpha) * (1.0 - sl)
-
-            carry = alpha.expand(tdims[0], tdims[1])
+            alpha = float(np.float32(float(params.light_intensities[li]))
+                          * np.float32(fp.light_alpha))
             if L.face_axis(fp.face) == 2:
-                # a ring along the sharded axis: the carry hops in
-                # propagation order, each owner scans its slices
-                for t in range(n):
-                    if rank == (t if direction == 1 else n - 1 - t):
-                        mine = []
-                        for sl in xs:
-                            carry = update(carry, sl)
-                            mine.append(carry)
-                        res_t = torch.stack(mine, 2)
-                    if t < n - 1:
-                        carry = _ring_shift(carry.contiguous(), group,
-                                            direction)
+                _z_face(ctx, fp, alpha, target)
             else:
-                # the scan axis is whole; buffer dim 1 is the sharded Z
-                mine = []
-                for sl in xs:
-                    carry = update(carry, all_gather_cat(sl, 1, group))
-                    mine.append(carry[:, rank * lz:(rank + 1) * lz])
-                res_t = torch.stack(mine, 2)
-            if direction == -1:
-                res_t = res_t.flip(2)
-            inv = [0, 0, 0]
-            for i, a in enumerate(ax):
-                inv[a] = i
-            lv_local = lv_local + res_t.permute(inv)
-    return lv_local
+                _xy_face(ctx, fp, alpha, target)
+        if contrib is not None:
+            out += contrib
+    return out

@@ -18,6 +18,17 @@ not exist, and the frame is a ray march instead: in lit mode kernel K9 by
 default, or the blocked march with empty-space skipping, or the
 step-by-step march (``march_impl``); in the other modes
 `march.march_intensity` or `octree.march_octree`.
+
+With ``mesh=`` and ``global_dims=`` a `Renderer` holds one Z slab of a
+volume that only several cards hold together (one process a card, the
+mesh's ``"slab"`` axis): its slab of the volume, the halo planes its
+rebuild reads, and its Z chunk of the light volume. Its setters are the
+single-card ones, called on every rank; the rebuild is
+`parallel.slab_sharding.compute_illumination_sharded_v2` and the lit
+frame `parallel.shearwarp_sharding.shearwarp_lit_slab_sharded`, both
+collectives, the frame whole on rank 0. March frames, the intensity and
+octree modes, an incremental light move, a half-resolution light volume
+and the fit (`models/`) are not sharded: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -107,18 +118,36 @@ class Renderer(nn.Module):
                  tf_table=None, windowing: Optional[WindowingParameters] = None,
                  transform: Optional[VolumeTransform] = None,
                  clip_plane: Optional[ClipPlane] = None,
-                 config: Optional[RendererConfig] = None, device=None):
+                 config: Optional[RendererConfig] = None, device=None,
+                 mesh=None, global_dims=None):
         super().__init__()
         self.config = config or RendererConfig()
         if self.config.march_impl not in MARCH_IMPLS:
             raise ValueError(f"unknown march_impl {self.config.march_impl!r}; "
                              f"choose {MARCH_IMPLS}")
         self._check_mode(self.config.render_mode)
+        if (mesh is None) != (global_dims is None):
+            raise ValueError("a slab-sharded Renderer takes both mesh= and "
+                             "global_dims=")
+        self._mesh = mesh
+        self._held = None
         volume = torch.as_tensor(volume, dtype=torch.float32,
                                  device=resolve_device(device, like=volume))
+        if mesh is not None:
+            # imported here: `parallel/` (the device mesh, DTensor) adds
+            # over a second to every import of the renderer
+            from .parallel import slab_sharding as SS
+
+            self._check_sharded()
+            self._dims = tuple(int(d) for d in global_dims)
+            self._held = SS.hold_slab(mesh, volume, self._dims,
+                                      SS._halo_depth(self._dims, self._dims))
+            volume = self._held.slab
+        else:
+            self._dims = tuple(volume.shape)
         self._has_real_info = info is not None
         self.info = info or VolumeInfo(
-            dimensions=tuple(volume.shape), is_normalized=True,
+            dimensions=self._dims, is_normalized=True,
             min_value=0.0, max_value=1.0,
         )
         self.register_buffer("volume", volume)
@@ -156,6 +185,28 @@ class Renderer(nn.Module):
     def device(self) -> torch.device:
         return self.volume.device
 
+    @property
+    def sharded(self) -> bool:
+        """Whether this Renderer holds one Z slab (``mesh=``)."""
+        return self._mesh is not None
+
+    def _check_sharded(self):
+        """Refuse what a slab-sharded Renderer does not do."""
+        if self.config.render_mode != "lit":
+            raise NotImplementedError(
+                f"a slab-sharded Renderer renders lit frames only, not "
+                f"{self.config.render_mode!r}: the intensity and octree "
+                f"modes have no sharded composite")
+        if self.config.light_volume_half_resolution:
+            raise NotImplementedError(
+                "a slab-sharded Renderer keeps a full-resolution light "
+                "volume: its frame pre-shears the light chunk in the "
+                "volume's slab")
+        if self.config.march_impl not in ("auto", "shearwarp"):
+            raise NotImplementedError(
+                "a slab-sharded Renderer renders shear-warp frames only: "
+                "the march has no sharded path through the Renderer")
+
     @staticmethod
     def _check_mode(mode):
         if mode not in RENDER_MODES:
@@ -172,6 +223,7 @@ class Renderer(nn.Module):
         return (1.0, 1.0, 1.0)
 
     def light_volume_dims(self):
+        """The light volume's dims: on a sharded Renderer its chunk's."""
         dims = tuple(self.volume.shape)
         if self.config.light_volume_half_resolution:
             return tuple(max(1, d // 2) for d in dims)
@@ -180,8 +232,15 @@ class Renderer(nn.Module):
     # --- change notification -------------------------------------------------
 
     def set_volume(self, volume, info: Optional[VolumeInfo] = None):
-        self.volume = torch.as_tensor(volume, dtype=torch.float32,
-                                      device=self.device)
+        volume = torch.as_tensor(volume, dtype=torch.float32,
+                                 device=self.device)
+        if self.sharded:  # the rank's new slab, its halo exchanged again
+            from .parallel import slab_sharding as SS
+
+            self.volume, depth, self._held = volume[:0], self._held.depth, None
+            self._held = SS.hold_slab(self._mesh, volume, self._dims, depth)
+            volume = self._held.slab
+        self.volume = volume
         if info is not None:
             self.info = info
             self.windowing = info.default_windowing
@@ -229,6 +288,10 @@ class Renderer(nn.Module):
 
     def set_render_mode(self, mode: str):
         self._check_mode(mode)
+        if self.sharded and mode != "lit":
+            raise NotImplementedError(
+                f"a slab-sharded Renderer renders lit frames only, not "
+                f"{mode!r}")
         self.config.render_mode = mode
 
     def set_raymarch_steps(self, step_count: int):
@@ -245,6 +308,9 @@ class Renderer(nn.Module):
         """Remove a light, subtracting its contribution incrementally."""
         light = self.lights.pop(name)
         prev = self._prev_lights.pop(name, None)
+        if self.sharded:  # the next frame rebuilds the chunk whole
+            self._lights_dirty = True
+            return
         if prev is not None and not self._lights_dirty:
             self.light_volume = L.add_dir_light(
                 self.light_volume, *self._light_args(),
@@ -276,6 +342,9 @@ class Renderer(nn.Module):
 
     def reset_all_lights(self):
         """Full illumination rebuild (`ResetAllLights`, cpp:418-451)."""
+        if self.sharded:
+            self._reset_all_lights_sharded()
+            return
         args = self._light_args()
         lv = L.clear_light_volume(self.light_volume_dims(), device=self.device)
         for light in self.lights.values():
@@ -284,6 +353,41 @@ class Renderer(nn.Module):
                 apply_write_threshold=self.config.apply_write_threshold,
             )
         self.light_volume = lv
+        self._maybe_quantize()
+        self._prev_lights = {n: self._light_key(li)
+                             for n, li in self.lights.items()}
+        self._lights_dirty = False
+
+    def _reset_all_lights_sharded(self):
+        """The rebuild of this rank's light chunk, a collective: every
+        light's local plan (the whole volume's geometry), the halo held
+        deeper first where an X or Y face's chunks need it."""
+        from .models.pipeline import LightPlan, RenderParams
+        from .parallel import slab_sharding as SS
+
+        plans = [LightPlan.create(self._local_dir(li), self._dims)
+                 for li in self.lights.values()]
+        world = self._dims[2] // (self._held.z1 - self._held.z0)
+        need = SS.held_depth(plans, self._dims, self._dims, world)
+        if self._held.depth < need:  # once: the old halo freed first
+            slab = self._held.slab.clone()
+            self.volume, self._held = slab.new_empty(0), None
+            self._held = SS.hold_slab(self._mesh, slab, self._dims, need)
+            del slab
+            self.volume = self._held.slab
+        local_clip = self.transform.local_clip_plane(self.clip_plane)
+        params = RenderParams(
+            volume=self.volume, tf_table=self.tf_table,
+            window_center=None, window_width=None,
+            light_intensities=torch.tensor(
+                [float(li.intensity) for li in self.lights.values()],
+                dtype=torch.float32))
+        SS.compute_illumination_sharded_v2(
+            self._mesh, params, plans, local_clip.center,
+            local_clip.direction, self._dims,
+            apply_write_threshold=self.config.apply_write_threshold,
+            held=self._held, out=self.light_volume,
+            windowing_vec4=self.windowing.as_vec4(), per_light=True)
         self._maybe_quantize()
         self._prev_lights = {n: self._light_key(li)
                              for n, li in self.lights.items()}
@@ -301,9 +405,16 @@ class Renderer(nn.Module):
                    if self._light_key(light) != self._prev_lights[name]]
         if not changed:
             return
+        rebuild = (len(changed) > max(1, len(self.lights) // 2)
+                   and len(self.lights) > 1)
+        if self.sharded and not rebuild:
+            raise NotImplementedError(
+                "a slab-sharded Renderer rebuilds the illumination whole: "
+                "an incremental light move (change_dir_light) has no "
+                "sharded path; change the window, TF or clip plane with it "
+                "to rebuild")
         with P.span(P.LIGHTING):
-            if (len(changed) > max(1, len(self.lights) // 2)
-                    and len(self.lights) > 1):
+            if rebuild:
                 self.reset_all_lights()
                 return
             args = self._light_args()
@@ -326,6 +437,10 @@ class Renderer(nn.Module):
         in octree mode, or in any mode with ``force``."""
         if not (force or self.config.render_mode == "octree"):
             return
+        if self.sharded:
+            raise NotImplementedError(
+                "a slab-sharded Renderer builds no octree: the octree mode "
+                "and empty-space skipping belong to march frames")
         if self.octree is None or self._octree_dirty:
             self.octree = O.build_octree(self.volume, max_value=1.0)
             self._octree_dirty = False
@@ -353,6 +468,8 @@ class Renderer(nn.Module):
         self._check_mode(mode)
         self.ensure_lighting()
         self.ensure_octree()
+        if self.sharded:
+            return self._render_sharded(camera, width, height, scene_depth)
         if self.config.march_impl in ("auto", "shearwarp"):
             img = self._render_shearwarp(camera, width, height, scene_depth)
             if img is not None:
@@ -451,6 +568,34 @@ class Renderer(nn.Module):
         )
         return warp_to_screen_fused(inter, plan, width, height)
 
+    def _render_sharded(self, camera: Camera, width: int, height: int,
+                        scene_depth=None):
+        """The slab-sharded lit frame (a collective): the whole frame on
+        rank 0, None on the others."""
+        from .parallel import shearwarp_sharding as SSW
+
+        plan = self._plan(camera, width, height, self._dims, self._dims)
+        if plan is None:
+            raise NotImplementedError(
+                "the camera sits inside the volume's dominant slab: a march "
+                "frame, which a slab-sharded Renderer does not render")
+        jitter = None
+        if self.config.jitter:
+            jitter = jitter_values(plan.n2, plan.n1, self._frame_index,
+                                   device=self.device)
+            self._frame_index += 1
+        depth_lam = None
+        if scene_depth is not None:
+            depth_lam = SW.depth_to_lambda_max(plan, scene_depth, width,
+                                               height, device=self.device)
+        local_clip = self.transform.local_clip_plane(self.clip_plane)
+        return SSW.shearwarp_lit_slab_sharded(
+            self._mesh, self.volume, self.tf_table, self.light_volume, plan,
+            self._dims, self._dims, self.windowing.as_vec4(),
+            local_clip.center, local_clip.direction, width, height,
+            early_termination=self.config.early_termination, jitter=jitter,
+            depth_lam=depth_lam)
+
     def _drop_occupancy(self):
         self._occ = None
         self._occ_due = False
@@ -459,6 +604,10 @@ class Renderer(nn.Module):
         """The occupancy grid of empty-space skipping for the current
         volume, window and TF (with `octree.LERP_MARGIN`, so skipping is
         exact to the bit), built from the octree on first use."""
+        if self.sharded:
+            raise NotImplementedError(
+                "a slab-sharded Renderer builds no occupancy grid: it "
+                "renders no march frame")
         if self._occ is None:
             with P.span(P.OCCUPANCY):
                 self.ensure_octree(force=True)

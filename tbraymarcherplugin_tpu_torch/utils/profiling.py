@@ -54,6 +54,13 @@ COMPOSITE_BWD = "tbr.composite_bwd"  # K5
 LIGHT_SCAN_BWD = "tbr.light_scan_bwd"  # K7
 TF_ALPHA_BWD = "tbr.tf_alpha_bwd"  # K8
 WARP_BWD = "tbr.warp_bwd"  # K6
+# a slab-sharded Renderer (parallel/): each span's args end in the bytes
+# this rank sent
+HALO = "tbr.halo"  # the volume's halo planes, when exchanged
+LIGHT_RING = "tbr.light_ring"  # a Z face's carry, the upstream wait too
+LIGHT_HALO = "tbr.light_halo"  # an X or Y face's light halo columns
+PLANE_EXCHANGE = "tbr.plane_exchange"  # the partial planes' reduce-scatter
+BAND_GATHER = "tbr.band_gather"  # the column bands to rank 0
 
 _OFF = contextlib.nullcontext()
 

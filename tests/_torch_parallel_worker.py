@@ -226,8 +226,8 @@ def overlap_jobs(inp, world, exact):
 
 def slab_jobs(inp, world, exact):
     """The slab march (scene A, 24 steps), the ring on the +Z and -Z
-    scenes, illumination v1 and v2 (two lights); at world 1 the
-    single-device functions they are held to."""
+    scenes, the slab-local illumination with one light and with two; at
+    world 1 the single-device functions they are held to."""
     import torch
     import torch.distributed as dist
 
@@ -236,8 +236,8 @@ def slab_jobs(inp, world, exact):
     )
     from tbraymarcherplugin_tpu_torch.ops import march as M
     from tbraymarcherplugin_tpu_torch.parallel import (
-        compute_illumination_sharded, compute_illumination_sharded_v2,
-        make_mesh, march_lit_slab_ring, march_lit_slab_sharded,
+        compute_illumination_sharded_v2, make_mesh, march_lit_slab_ring,
+        march_lit_slab_sharded,
     )
 
     mesh = make_mesh({"slab": world})
@@ -259,12 +259,12 @@ def slab_jobs(inp, world, exact):
         if exact:
             out[key + "_single"] = _np(M.march_lit(*ring_args,
                                                    step_count=24))
-    out["illum_v1"] = _np(compute_illumination_sharded(
-        mesh, params, plans, *NO_CLIP, DIMS))
+    out["illum_one"] = _np(gather_z(compute_illumination_sharded_v2(
+        mesh, _z_slab(params, dist), plans, *NO_CLIP, DIMS), dist))
     params2 = _params(inp["a_vol"], inp["ramp_tf"], (1.0, 0.7))
     plans2 = _plans([LIGHT_A, LIGHT_B], DIMS)
-    chunk = compute_illumination_sharded_v2(mesh, params2, plans2, *NO_CLIP,
-                                            DIMS)
+    chunk = compute_illumination_sharded_v2(mesh, _z_slab(params2, dist),
+                                            plans2, *NO_CLIP, DIMS)
     out["illum_v2"] = _np(gather_z(chunk, dist))
     if exact:
         out["illum_single"] = _np(compute_illumination(params, plans,
@@ -288,9 +288,20 @@ def v2_jobs(inp, world, exact):
     for i, (vdims, ldims) in enumerate(V2_CASES):
         params = _params(inp[f"v2_vol{i}"], inp["v2_tf"], (1.0, 0.6))
         chunk = compute_illumination_sharded_v2(
-            mesh, params, _plans([LIGHT_A, LIGHT_B], ldims), *NO_CLIP, ldims)
+            mesh, _z_slab(params, dist), _plans([LIGHT_A, LIGHT_B], ldims),
+            *NO_CLIP, ldims)
         out[f"v2_{i}"] = _np(gather_z(chunk, dist))
     return out
+
+
+def _z_slab(params, dist):
+    """``params`` with only this rank's Z slab of the volume."""
+    import dataclasses
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    z = params.volume.shape[2] // n
+    return dataclasses.replace(
+        params, volume=params.volume[:, :, r * z:(r + 1) * z].contiguous())
 
 
 def gather_z(chunk, dist):

@@ -151,7 +151,7 @@ from tbraymarcherplugin_tpu_torch.ops import rays, synthetic, transfer
 from tbraymarcherplugin_tpu_torch.parallel import distributed
 from tbraymarcherplugin_tpu_torch.scene import Camera, ClipPlane, VolumeTransform
 
-assert len(parallel.__all__) == 13
+assert len(parallel.__all__) == 12
 with tempfile.TemporaryDirectory() as d:
     distributed.initialize_multihost("file://" + os.path.join(d, "store"),
                                      1, 0, device="cpu")

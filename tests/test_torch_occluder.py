@@ -138,6 +138,24 @@ def _parent_occluder(volume, tf_table, windowing_vec4, light_dims,
                        torch.zeros_like(opacity))
 
 
+def _assert_same_bits(got, want, what):
+    """``torch.equal``; where they differ, the message says which elements
+    differ and by how much, with the thread count and whether this
+    thread flushes subnormals (the state that could make two CPU
+    evaluations of one expression part)."""
+    if torch.equal(got, want):
+        return
+    diff = got != want
+    idx = diff.nonzero()[:8].tolist()
+    flushes = bool(torch.tensor([1e-39]) * 1.0 == 0.0)
+    raise AssertionError(
+        f"{what}: {int(diff.sum())} of {want.numel()} elements differ, max "
+        f"abs {float((got - want).abs().max()):.3e}; the first at {idx}: "
+        f"got {got[diff][:8].tolist()}, want {want[diff][:8].tolist()} | "
+        f"torch threads {torch.get_num_threads()}, subnormals flushed on "
+        f"this thread {flushes}")
+
+
 def _args(vol, tf, win, face, ratio, clip):
     ld = LIGHT[ratio]
     fp = _face_plan(face, ld)
@@ -155,8 +173,8 @@ def test_occluder_plain_matches_parent(face, ratio, clip):
     args = _args(vol, tf, WIN, face, ratio, clip)
     want = _parent_occluder(*args)
     got, values, keep_weight = PL.occluder_opacity_plain(*args, parts=True)
-    assert torch.equal(got, want)
-    assert torch.equal(PL.occluder_opacity(*args), want)
+    _assert_same_bits(got, want, "the plain version")
+    _assert_same_bits(PL.occluder_opacity(*args), want, "occluder_opacity")
     assert (want > 0).any()
     if clip != "miss":  # the plane cuts voxels off
         assert (keep_weight == 0).any() and (keep_weight == 1).any()

@@ -12,8 +12,8 @@ processes of one thread each, all at once. The results are held here:
   the rays 4 x slab 2 mesh) and the shear-warp render;
 - where the JAX test is slow, against the single-device JAX function that
   test holds the sharded one to, at its limits: the slab march and the
-  ring (rtol 1e-4, atol 1e-5), illumination v1 and v2 (rtol 1e-5, atol
-  1e-6);
+  ring (rtol 1e-4, atol 1e-5), the slab-local illumination with one
+  and two lights (rtol 1e-5, atol 1e-6);
 - against the port itself: the differentiable shear-warp at world 2
   against the single-device fused path (the JAX diff test's limits, rtol
   5e-3, atol 1e-5 of the largest value; that path is held to JAX by
@@ -272,10 +272,10 @@ def test_slab_ring_matches_jax_march_lit(inputs, runs, key):
     np.testing.assert_allclose(runs[8][key], want, rtol=1e-4, atol=1e-5)
 
 
-def test_illumination_v1_matches_jax(inputs, runs):
+def test_illumination_one_light_matches_jax(inputs, runs):
     want = JP.compute_illumination(_params_j(inputs), _plans_j([W.LIGHT_A]),
                                    *NO_CLIP, W.DIMS)
-    np.testing.assert_allclose(runs[8]["illum_v1"], np.asarray(want),
+    np.testing.assert_allclose(runs[8]["illum_one"], np.asarray(want),
                                rtol=1e-5, atol=1e-6)
 
 
@@ -341,10 +341,10 @@ def test_train_step_world2_matches_world1(runs):
 
 @pytest.mark.parametrize("key", [
     "ray", "pad", "sw", "slab", "ring_p", "ring_n", "diff_img", "diff_loss",
-    "diff_dvol", "diff_dtf", "diff_dwin", "illum_v1", "illum_v2"])
+    "diff_dvol", "diff_dtf", "diff_dwin", "illum_one", "illum_v2"])
 def test_world1_is_the_single_device_path_bit_for_bit(runs, key):
     one = runs[1]
-    single = {"illum_v1": "illum_single", "illum_v2": "illum2_single"}.get(
+    single = {"illum_one": "illum_single", "illum_v2": "illum2_single"}.get(
         key, key.replace("diff_", "diff_single_") if key.startswith("diff_")
         else key + "_single")
     np.testing.assert_array_equal(one[key], one[single])
@@ -367,7 +367,7 @@ def test_world8_slabs_are_the_single_device_path(runs):
         np.testing.assert_array_equal(eight[key], one[key + "_single"],
                                       err_msg=key)
     for key, single in (("ray", "ray_single"), ("pad", "pad_single"),
-                        ("slab", "slab_single"), ("illum_v1", "illum_single"),
+                        ("slab", "slab_single"), ("illum_one", "illum_single"),
                         ("illum_v2", "illum2_single")):
         np.testing.assert_allclose(eight[key], one[single], rtol=1e-6,
                                    atol=1e-7, err_msg=key)
@@ -429,4 +429,4 @@ def test_parallel_check_tool_on_cpu(capfd):
     assert parallel_check.main(["--nproc", "2", "--device", "cpu",
                                 "--scene", "small"]) == 0
     out = capfd.readouterr().out  # the ranks print from their processes
-    assert out.count("| ok |") == 9 and "FAILED" not in out
+    assert out.count("| ok |") == 8 and "FAILED" not in out
