@@ -141,10 +141,19 @@ Phases, one line each:
      rank's column band of the four slabs' summed partial planes against
      its plain version (LIMITS) and against the one-card composite's band
      of the same planes (atol 1e-6); the launches of K3's occluder
-     source, K4 and K1 counted from zero, with each launch's time.
+     source, K4 and K1 counted from zero, with each launch's time;
+ 14. preshear: K12 at the chest clip drag cell's frame (512x512x384,
+     bfloat16 planes, both streams, the jitter's padding plane) and at the
+     fit's planes (256^3, float32), each against its plain version (the
+     same bits; the same bits on a second launch; one launch a stream),
+     timed with its bound and the parent's composition (`_volume_planes`,
+     the light slices' lerp and the tent matrices' two `bmm`:
+     `library_ms`); its adjoint on the fit's light stream against the
+     plain adjoint (1e-5 of the largest value), the same bits twice, timed
+     with its bound and autograd through the parent's composition.
 
-``python3 chip_smoke.py --phases 12,13`` runs phases 1, 2 and the named
-ones of 12 and 13 alone, on phase 3's scene.
+``python3 chip_smoke.py --phases 12,13,14`` runs phases 1, 2 and the named
+ones of 12, 13 and 14 alone, on phase 3's scene.
 Every kernel is timed two ways: ``ms``, CUDA events around back-to-back
 calls of its Python wrapper (host time included where the host is slower
 than the card), and ``device_ms``, the device work alone (`device_ms`:
@@ -171,9 +180,16 @@ DIMS = (256, 256, 256)
 # Phase 3: K3's occluder source also at the chest CT's shape (LUNA16,
 # full-resolution light), one face
 CHEST_DIMS = (512, 512, 384)
-# The kernels of the shear-warp fwd+bwd, forward (K1, K2, K3's occluder
-# source, K4) then backward (K5-K8)
-FWD_BWD = ("composite", "row_lerp", "occluder", "light_scan",
+# Phase 14: the chest CT's frame as rmbench/configs/luna16_chest.json sets
+# it: voxels of 0.7 x 0.7 x 0.8 mm, the camera at azimuth 30 and
+# elevation 15 degrees, 2.2 times the largest world extent from the
+# center, field of view 40 degrees
+CHEST_SPACING_MM = (0.7, 0.7, 0.8)
+CHEST_CAMERA = (30.0, 15.0, 2.2, 40.0)
+# The kernels of the shear-warp fwd+bwd, forward (K12, K1, K2, K3's
+# occluder source, K4) then backward (K5-K8; K12's adjoint is counted
+# apart: it is no wrapper of the kernel table)
+FWD_BWD = ("preshear", "composite", "row_lerp", "occluder", "light_scan",
            "composite_bwd", "row_lerp_bwd", "light_scan_bwd", "tf_alpha_bwd")
 WIDTH, HEIGHT, STEPS = 1920, 1080, 150
 WINDOW = (0.5, 0.8)
@@ -184,8 +200,10 @@ FOV = 40.0
 
 # Max abs error of a kernel against its plain version on the same inputs.
 # The kernels round every operation as their plain versions do (see
-# csrc/common.cuh); what remains are ulps of expf/logf against PyTorch's
-# exp/log (K1, K3). K2 and K4 have no transcendentals and agree exactly.
+# csrc/common.cuh). On an H100 (CUDA 12.8, torch 2.11) expf and logf give
+# PyTorch's exp and log bit for bit, and K1 agrees with its plain version
+# exactly on the bench frame; the limits leave room for another toolkit's
+# ulps. K2 and K4 have no transcendentals and agree exactly.
 LIMITS = {"composite": 2e-5, "row_lerp": 1e-5, "tf_alpha": 1e-6,
           "occluder": 1e-6, "light_scan": 1e-5, "march": 2e-5}
 # `grid_sample` as K2's yardstick against K2's plain version: it maps its
@@ -214,8 +232,9 @@ BWD_LIMITS = {"composite_bwd": 2.0 ** -8, "row_lerp_bwd": 1e-5,
 # RGB lerps round as the plain version's and its alpha meets expf/logf
 # ulps; K10b sums in another order and meets the same ulps (K8's limit).
 REPLAY_LIMITS = dict(BWD_LIMITS, tf_rgba=1e-6, tf_rgba_bwd=1e-4)
-# Kernel frame vs all-plain frame, RGBA: K3's exp/log ulps reach the light
-# volume and move the frame by 7.5e-5 on the bench scene (PERF.md).
+# Kernel frame vs all-plain frame, RGBA: the same bits on an H100 (CUDA
+# 12.8, torch 2.11); the limit leaves room for another toolkit's exp/log
+# ulps, which reach the frame through the light volume.
 FRAME_VS_PLAIN_LIMIT = 1e-4
 # Gradients of the kernel path vs the all-plain path on the card (bf16
 # planes in both) and vs the CPU at 24^3 (float32 planes in both), each as
@@ -325,6 +344,21 @@ COMPOSITE_SHADE_OPS = {"lit": 46, "unlit": 43, "intensity": 0}
 # center: it hides about half of the frame's alpha at 64^3 on the CPU).
 DEPTH_PLANE = ((0.0, -0.2, 0.0), (0.1, -0.95, 0.3))
 
+# Phase 14: K12 (the pre-shear) at the chest CT's frame (bfloat16 planes,
+# both streams, the jitter's padding plane) and at the fit's (float32,
+# 256^3, no jitter), and its adjoint at the fit's. The kernel does the
+# plain version's operations in its order: float32 the same bits, and so
+# bfloat16 too (one rounding of the same value); the adjoint sums in
+# another order than the plain scatter-adds, as the largest error over the
+# largest plain value. Operations per plane sample: the principal lerp (3)
+# and the row lerp (3) of its line's texels, over the samples a line
+# serves, at most 1; the column taps (mul, add, max, min, floor, sub, sub)
+# and lerp (3): 10 + 6 = 16. The adjoint: per cotangent value two taps'
+# weights and adds (2 x (7 + 2)) and per source texel the rows' (same): 18.
+PRESHEAR_LIMIT = 0.0
+PRESHEAR_ADJOINT_LIMIT = 1e-5
+PRESHEAR_OPS, PRESHEAR_ADJOINT_OPS = 16, 18
+
 REPLACES = {
     "composite": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
     "composite_intensity": "tbraymarcherplugin_tpu/ops/shearwarp_pallas.py:146",
@@ -342,6 +376,9 @@ REPLACES = {
     "tf_rgba": "tbraymarcherplugin_tpu/ops/pallas_tf.py:131",
     "tf_rgba_bwd": "tbraymarcherplugin_tpu/ops/pallas_tf.py:170",
     "gather_probe": "benchmarks/micro.py:155",
+    "preshear": "none: tbraymarcherplugin_tpu/ops/shearwarp.py "
+                "_resample_block, XLA einsums",
+    "preshear_adjoint": "none: the einsums' transposes under jax.vjp",
 }
 SOURCES = {
     "composite": "tbraymarcherplugin_tpu_torch/csrc/composite.cu",
@@ -360,6 +397,8 @@ SOURCES = {
     "tf_rgba": "tbraymarcherplugin_tpu_torch/csrc/tf_rgba.cu",
     "tf_rgba_bwd": "tbraymarcherplugin_tpu_torch/csrc/tf_rgba_bwd.cu",
     "gather_probe": "tbraymarcherplugin_tpu_torch/csrc/gather_probe.cu",
+    "preshear": "tbraymarcherplugin_tpu_torch/csrc/preshear.cu",
+    "preshear_adjoint": "tbraymarcherplugin_tpu_torch/csrc/preshear.cu",
 }
 
 
@@ -580,11 +619,13 @@ def composite_bound(torch, kw, out, stats):
 
 
 def kernel_table():
-    """(name, module, wrapper name) of each kernel, K1-K11 (K3 twice: on
-    values and with its occluder source)."""
+    """(name, module, wrapper name) of each kernel, K1-K12 (K3 twice: on
+    values and with its occluder source; K12's adjoint, a wrapper of
+    other arguments than its plain version's, is not swapped: where K12
+    runs plain, autograd differentiates its plain version)."""
     from tbraymarcherplugin_tpu_torch.ops import composite, fused_march
     from tbraymarcherplugin_tpu_torch.ops import light_scan, lighting
-    from tbraymarcherplugin_tpu_torch.ops import shearwarp_grad
+    from tbraymarcherplugin_tpu_torch.ops import preshear, shearwarp_grad
     from tbraymarcherplugin_tpu_torch.ops import tf_alpha, tf_rgba, warp
     from tbraymarcherplugin_tpu_torch.tools import micro
 
@@ -600,7 +641,8 @@ def kernel_table():
             ("march", fused_march, "march_lit_fused"),
             ("tf_rgba", tf_rgba, "windowed_tf_rgba"),
             ("tf_rgba_bwd", tf_rgba, "windowed_tf_rgba_bwd"),
-            ("gather_probe", micro, "gather_probe"))
+            ("gather_probe", micro, "gather_probe"),
+            ("preshear", preshear, "preshear"))
 
 
 @contextlib.contextmanager
@@ -729,6 +771,7 @@ def make_fwd_bwd_step(torch, vol, cam, transform, clip, width, height,
 
 def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     """Phase 5 (see the module docstring); adds K5-K8 to ``results``."""
+    from tbraymarcherplugin_tpu_torch.ops import preshear as K12
     from tbraymarcherplugin_tpu_torch.ops import (shearwarp_grad, synthetic,
                                                   tf_alpha)
 
@@ -745,6 +788,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
     step = make_step(volume, WIDTH, HEIGHT, max_planes=STEPS)
     for _, mod, fn in table:
         getattr(mod, fn).launches = 0
+    K12.preshear_adjoint.launches = 0
     outs, step_ms = [], []
     for c in FWD_BWD_CENTERS:
         torch.cuda.synchronize()
@@ -755,13 +799,17 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
         step_ms.append(ms)
     peak = (torch.cuda.max_memory_allocated() / 2**20, before / 2**20)
     launches = {name: getattr(mod, fn).launches for name, mod, fn in table}
+    launches["preshear_adjoint"] = K12.preshear_adjoint.launches
     print(f"[fwd+bwd] launches {launches} | ms per step (host clock) "
           f"{', '.join(f'{m:.2f}' for m in step_ms)} | peak device memory "
           f"of the third step {peak[0]:.1f} MiB ({peak[1]:.1f} MiB "
           f"allocated before it) | {card}", flush=True)
-    for name, _, _ in table:
+    for name in launches:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the fwd+bwd path")
+    # each step pre-shears the volume and the light, both leaves here
+    for name in ("preshear", "preshear_adjoint"):
+        results.setdefault(name, {})["fwd_bwd_launches"] = launches[name]
     keys = []
     for loss, grads, _ in outs:
         for f, g in zip(FIELDS, grads):
@@ -773,7 +821,7 @@ def fwd_bwd_phase(torch, volume, cam, transform, clip, card, results):
 
     # K5-K8 on the inputs the path gave them.
     calls = {}
-    bwd = table[4:]
+    bwd = [t for t in table if t[0].endswith("_bwd")]
     with capture_calls(calls, [name for name, _, _ in bwd]):
         step(FWD_BWD_CENTERS[0])
     # the captured inputs are autograd intermediates: without no_grad the
@@ -2363,23 +2411,197 @@ def slab_phase(torch, card, results):
 T0 = time.perf_counter()
 
 
+def chest_plan(SW, PS):
+    """The chest clip drag cell's plan: the proxy cube of CHEST_DIMS at
+    CHEST_SPACING_MM, its extent in cm, and the camera CHEST_CAMERA looking
+    at its center, 1920x1080, 150 planes."""
+    import numpy as np
+
+    scale = np.asarray(CHEST_DIMS, np.float64) * np.asarray(
+        CHEST_SPACING_MM) / 10.0
+    az, el, dist, fov = CHEST_CAMERA
+    d = dist * float(scale.max())
+    az, el = math.radians(az), math.radians(el)
+    pos = (d * math.cos(el) * math.sin(az), -d * math.cos(el) * math.cos(az),
+           d * math.sin(el))
+    return SW.plan_shearwarp(
+        PS.Camera.look_at(pos, (0.0, 0.0, 0.0), fov_degrees=fov),
+        PS.VolumeTransform.create(scale=tuple(float(x) for x in scale)),
+        CHEST_DIMS, CHEST_DIMS, WIDTH, HEIGHT, max_planes=STEPS)
+
+
+def preshear_phase(torch, card, results):
+    """Phase 14: K12, the pre-shear, against its plain version and the
+    parent's composition (`_volume_planes`, the light slices' lerp and the
+    tent matrices' two `bmm`, `shearwarp._resample_block`: `library_ms`)
+    at the chest CT's frame (bfloat16) and the fit's planes (float32); its
+    adjoint at the fit's against the plain adjoint and autograd through
+    the `bmm` composition's light stream. A frame's pre-shear is both
+    streams; the bound counts the planes written once and each slice the
+    planes read, read once."""
+    import numpy as np
+
+    from tbraymarcherplugin_tpu_torch import scene as PS
+    from tbraymarcherplugin_tpu_torch.ops import composite as K1
+    from tbraymarcherplugin_tpu_torch.ops import preshear as K12
+    from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def parent(plan, kbuf, dtype, vol, light, f32_out=False):
+        """The parent's two streams: slices, lerp, pad, tent-matrix bmm."""
+        ax = (plan.axis,) + tuple(plan.axes12)
+
+        def coeff(n):
+            return SW._pad_to(SW._t(getattr(plan, n), dev), kbuf)
+
+        W = SW._resample_block(SW._pad_to(SW._volume_planes(
+            vol.permute(ax), plan), kbuf), *(coeff(n) for n in (
+                "a1", "b1", "a2", "b2")), plan.n1, plan.n2, dtype)
+        lt = light.permute(ax)
+        lm0 = SW._t(plan.lm0, dev)
+        lmt = SW._t(plan.lmt, dev)[:, None, None]
+        lp = lt[lm0] * (1.0 - lmt) + lt[(lm0 + 1).clamp(
+            max=lt.shape[0] - 1)] * lmt
+        return W, SW._resample_block(
+            SW._pad_to(lp, kbuf), *(coeff(n) for n in (
+                "la1", "lb1", "la2", "lb2")), plan.n1, plan.n2, dtype)
+
+    def nbytes(st, planes):
+        used = set(st.m0.tolist()) | (set(st.m1.tolist()) if st.lerp else
+                                      set())
+        return (len(used) * st.dims[1] * st.dims[2] * 4
+                + planes.numel() * planes.element_size())
+
+    def forward_row(label, dims, plan, kbuf, dtype):
+        vol = torch.rand(dims, generator=gen, device=dev)
+        light = torch.rand(dims, generator=gen, device=dev)
+        vs, ls = K12.plan_streams(plan, kbuf, dims, dims, False, dev)
+
+        def frame():
+            return (K12.preshear(vol, vs, dtype),
+                    K12.preshear(light, ls, dtype))
+
+        before = K12.preshear.launches
+        got = frame()
+        check(K12.preshear.launches == before + 2,
+              "preshear: not one launch a stream")
+        again = frame()
+        err = 0.0
+        for g, a, src, st in zip(got, again, (vol, light), (vs, ls)):
+            want = K12.preshear_plain(src, st, dtype)
+            check(torch.equal(g, a), "preshear: other bits on a second run")
+            err = max(err, float((g.float() - want.float()).abs().max()))
+            del want
+        check(err <= PRESHEAR_LIMIT, f"preshear {label}: {err:.3e} from "
+              f"the plain version")
+        ms = cuda_ms(torch, frame, 10)
+        dms = device_ms(torch, frame, 10)
+        check(dms[1] == 2, f"preshear took {dms[1]:g} device operations a "
+              f"frame")
+        plain_ms = cuda_ms(torch, lambda: (
+            K12.preshear_plain(vol, vs, dtype),
+            K12.preshear_plain(light, ls, dtype)), 2)
+        lib = parent(plan, kbuf, dtype, vol, light)
+        lib_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(lib, got))
+        del lib
+        lib_ms = cuda_ms(torch, lambda: parent(plan, kbuf, dtype, vol,
+                                               light), 5)
+        lib_dms = device_ms(torch, lambda: parent(plan, kbuf, dtype, vol,
+                                                  light), 5)
+        samples = sum(p.numel() for p in got)
+        row = dict(max_abs_err=err, ms=ms, device_ms=dms[0],
+                   device_ops_per_call=dms[1], plain_ms=plain_ms,
+                   library_ms=lib_ms, library_device_ms=lib_dms[0],
+                   library_device_ops=lib_dms[1], library_max_abs_err=lib_err,
+                   dims=list(dims), planes=[kbuf, plan.n1, plan.n2],
+                   dtype=str(dtype).replace("torch.", ""),
+                   **_bound(nbytes(vs, got[0]) + nbytes(ls, got[1]),
+                            samples * PRESHEAR_OPS))
+        print(f"[kernel] preshear {label}: {dims}, planes {kbuf} x "
+              f"{plan.n1} x {plan.n2} {row['dtype']}, axis {plan.axis}, "
+              f"both streams | max_abs_err {err:.3e} (limit "
+              f"{PRESHEAR_LIMIT:.0e}), the same bits twice | kernel {ms:.4f} "
+              f"ms back to back, {dms[0]:.4f} ms on the device ({dms[1]:g} "
+              f"device ops) | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) | plain {plain_ms:.3f} ms | the parent's "
+              f"bmm composition {lib_ms:.4f} ms, {lib_dms[0]:.4f} ms on the "
+              f"device ({lib_dms[1]:g} device ops), {lib_err:.3e} from K12 "
+              f"| {card}", flush=True)
+        return row, (vol, light, vs, ls)
+
+    chest, _ = forward_row("chest", CHEST_DIMS, chest_plan(SW, PS),
+                           -(-STEPS // K1.KB) * K1.KB + 1, torch.bfloat16)
+    plan = SW.plan_shearwarp(PS.Camera.look_at(CAM_POS, 0.0,
+                                               fov_degrees=FOV),
+                             PS.VolumeTransform.create(), DIMS, DIMS, WIDTH,
+                             HEIGHT, max_planes=STEPS)
+    kbuf = -(-plan.k // K1.KB) * K1.KB
+    fit, (_, light, _, ls) = forward_row("fit", DIMS, plan, kbuf,
+                                         torch.float32)
+    results.setdefault("preshear", {}).update(chest, fit=fit)
+
+    # the adjoint of the fit's light stream
+    g = torch.randn((kbuf, plan.n1, plan.n2), generator=gen, device=dev)
+    got = K12.preshear_adjoint(g, ls, DIMS)
+    again = K12.preshear_adjoint(g, ls, DIMS)
+    check(torch.equal(got, again), "preshear_adjoint: other bits on a "
+          "second run")
+    want = K12.preshear_adjoint_plain(g, ls).permute(K12._inverse(ls.ax))
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    check(err <= PRESHEAR_ADJOINT_LIMIT, f"preshear_adjoint: {err:.3e} of "
+          f"the largest plain value")
+    del want
+    ms = cuda_ms(torch, lambda: K12.preshear_adjoint(g, ls, DIMS), 10)
+    dms = device_ms(torch, lambda: K12.preshear_adjoint(g, ls, DIMS), 10)
+    plain_ms = cuda_ms(torch, lambda: K12.preshear_adjoint_plain(g, ls), 2)
+    leaf = light.clone().requires_grad_()
+    _, lib_out = parent(plan, kbuf, torch.float32, leaf, leaf)
+    lib_grad = torch.autograd.grad(lib_out, leaf, g, retain_graph=True)[0]
+    lib_err = float((lib_grad - got).abs().max()) / float(got.abs().max())
+
+    def lib():
+        return torch.autograd.grad(lib_out, leaf, g, retain_graph=True)
+
+    lib_ms = cuda_ms(torch, lib, 5)
+    lib_dms = device_ms(torch, lib, 5)
+    row = dict(max_rel_err=err, ms=ms, device_ms=dms[0],
+               device_ops_per_call=dms[1], plain_ms=plain_ms,
+               library_ms=lib_ms, library_device_ms=lib_dms[0],
+               library_rel_err=lib_err,
+               **_bound(g.numel() * 4 + got.numel() * 4,
+                        (g.numel() + got.numel()) * PRESHEAR_ADJOINT_OPS))
+    results.setdefault("preshear_adjoint", {}).update(row)
+    print(f"[kernel] preshear_adjoint fit: the light stream's (float32) | "
+          f"{err:.3e} of the largest plain value (limit "
+          f"{PRESHEAR_ADJOINT_LIMIT:.0e}), the same bits twice | kernel "
+          f"{ms:.4f} ms back to back, {dms[0]:.4f} ms on the device "
+          f"({dms[1]:g} device ops) | bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}) | plain {plain_ms:.3f} ms | autograd through "
+          f"the parent's bmm composition {lib_ms:.4f} ms, {lib_dms[0]:.4f} ms "
+          f"on the device, {lib_err:.3e} from K12 | {card}", flush=True)
+
+
 def _phases(argv) -> set | None:
-    """The phases of 12 and 13 that ``--phases a,b`` names; None: all."""
+    """The phases of 12, 13 and 14 that ``--phases a,b`` names; None:
+    all."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 12,13]")
+        raise SystemExit("usage: chip_smoke.py [--phases 12,13,14]")
     phases = {int(p) for p in argv[1].split(",")}
-    if not phases or not phases <= {12, 13}:
-        raise SystemExit("--phases takes 12 and 13 alone")
+    if not phases or not phases <= {12, 13, 14}:
+        raise SystemExit("--phases takes 12, 13 and 14 alone")
     return phases
 
 
 def some_phases(torch, phases, volume, tf, win, light, cam, transform, clip,
                 card) -> int:
-    """Phases 12 and 13 alone (``--phases``), 12 on phase 3's scene and its
-    light volume and plan; then the launches they counted and the result
-    line."""
+    """Phases 12, 13 and 14 alone (``--phases``), 12 on phase 3's scene
+    and its light volume and plan; then the launches they counted, phase
+    14's kernel rows and the result line."""
     from tbraymarcherplugin_tpu_torch.ops import lighting as Lt
     from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
 
@@ -2406,6 +2628,12 @@ def some_phases(torch, phases, volume, tf, win, light, cam, transform, clip,
         print(f"[time] phase 13 {time.perf_counter() - t13:.1f} s, peak "
               f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
               f"GB | {card}", flush=True)
+    if 14 in phases:
+        t14 = time.perf_counter()
+        preshear_phase(torch, card, results)
+        torch.cuda.synchronize()
+        print(f"[time] phase 14 {time.perf_counter() - t14:.1f} s | {card}",
+              flush=True)
     print(json.dumps({"launches": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2429,6 +2657,7 @@ def main() -> int:
     from tbraymarcherplugin_tpu_torch.ops import composite as K1
     from tbraymarcherplugin_tpu_torch.ops import light_scan as K4
     from tbraymarcherplugin_tpu_torch.ops import lighting as Lt
+    from tbraymarcherplugin_tpu_torch.ops import preshear as K12
     from tbraymarcherplugin_tpu_torch.ops import shearwarp as SW
     from tbraymarcherplugin_tpu_torch.ops import synthetic
     from tbraymarcherplugin_tpu_torch.ops import tf_alpha as K3
@@ -2641,8 +2870,8 @@ def main() -> int:
     cams = [orbit_camera(angle0 + 0.2 * i, radius, CAM_POS[2],
                          fov_degrees=FOV) for i in range(4)]
     kernels = (K1.composite, K2.row_lerp, Lt.occluder_opacity,
-               K4.propagate_face_scan)
-    names = ("composite", "row_lerp", "occluder", "light_scan")
+               K4.propagate_face_scan, K12.preshear)
+    names = ("composite", "row_lerp", "occluder", "light_scan", "preshear")
     rk = make_renderer()
     for k in kernels:
         k.launches = 0
@@ -2661,7 +2890,9 @@ def main() -> int:
           f"+ frame {move_ms:.2f} ms | {card}", flush=True)
     for n in names:
         check(launches[n] > 0, f"kernel {n} was not launched by the main path")
-        results[n]["launches"] = launches[n]
+        results.setdefault(n, {})["launches"] = launches[n]
+    check(launches["preshear"] == 2 * launches["composite"],
+          "preshear: not one launch a stream and frame on the main path")
     calls = {}
     with capture_calls(calls, ["light_scan"]), torch.no_grad():
         make_renderer().ensure_lighting()
@@ -2762,8 +2993,17 @@ def main() -> int:
     print(f"[time] phase 13 {now - t13:.1f} s | the script up to here "
           f"{now - T0:.1f} s (host clock) | {card}", flush=True)
 
+    # --- 14. the pre-shear (K12) and its adjoint ---------------------------
+    t14 = time.perf_counter()
+    preshear_phase(torch, card, results)
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    print(f"[time] phase 14 {now - t14:.1f} s | the script up to here "
+          f"{now - T0:.1f} s (host clock) | {card}", flush=True)
+
     names = [n for n, _, _ in kernel_table()]
     names[1:1] = ["composite_intensity", "composite_unlit", "composite_depth"]
+    names += ["preshear_adjoint"]
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
              **results[n]) for n in names

@@ -154,9 +154,10 @@ def render_lit_scene(params: RenderParams, rays, clip_center, clip_direction,
       (`ops.shearwarp.shearwarp_intermediate`, checkpointed per block of 8
       planes; ``"pallas"`` windows through K10a/K10b) and the plain screen
       warp, ``"fused"`` the fused composite and warp (forward K1-K4,
-      backward K5-K8). ``shearwarp_dtype`` rounds the pre-shear's operands
-      (the bench's fused path stores bfloat16 planes; None: bfloat16 on
-      the card and float32 on the CPU, on every branch); the dense
+      backward K5-K8). ``shearwarp_dtype`` is the pre-shear's storage
+      type (the fused path's K12 rounds each plane sample once to it, the
+      dense path rounds the resample's operands; None: bfloat16 on the
+      card and float32 on the CPU, on every branch); the dense
       composite's samples stay float32.
     - ``"scan"`` (`march.march_lit`, checkpointed every
       ``checkpoint_every`` steps), ``"blocked"`` (`march.march_lit_blocked`

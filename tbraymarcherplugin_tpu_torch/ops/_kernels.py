@@ -43,6 +43,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _COMPOSITE = [_P] * 12 + [_I] * 6 + [_F] * 4 + [_P]
 _COMPOSITE_BWD = [_P] * 13 + [_I] * 7 + [_F] * 4 + [_P]
+_L = ctypes.c_longlong
+_PRESHEAR = [_P, _L, _L, _L, _I, _I, _P, _P] + [_I] * 6 + [_P]
+_PRESHEAR_ADJOINT = ([_P] * 3 + [_L] * 3 + [_I] * 3 + [_P, _P] + [_I] * 6
+                     + [_P])
 SIGNATURES = {
     "tbr_composite_f32": _COMPOSITE,
     "tbr_composite_bf16": _COMPOSITE,
@@ -65,6 +69,10 @@ SIGNATURES = {
     "tbr_tf_rgba": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
     "tbr_tf_rgba_bwd": [_P] * 11 + [ctypes.c_longlong] * 2 + [_I, _P],
     "tbr_gather_probe": [_P] * 3 + [ctypes.c_longlong, _I, _P],
+    "tbr_preshear_f32": _PRESHEAR,
+    "tbr_preshear_bf16": _PRESHEAR,
+    "tbr_preshear_adjoint_f32": _PRESHEAR_ADJOINT,
+    "tbr_preshear_adjoint_bf16": _PRESHEAR_ADJOINT,
 }
 
 _lib = None

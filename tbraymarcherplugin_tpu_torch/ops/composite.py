@@ -5,12 +5,13 @@ shearwarp_intermediate_fused` in its three modes: "lit" (the frame),
 "unlit" (the octree mode, with ``sample_nearest``) and "intensity" (first
 hit), with the optional per-pixel λ jitter and scene-depth ceiling
 ``depth_lam``. The glue pre-shears the volume and, in lit mode, the light
-planes with batched banded matmuls (`shearwarp._resample_block`, as the JAX
-package leaves them outside its kernel), computes the per-pixel step and
-clip fields, the per-plane coefficients and the exact per-chunk occupancy
-flags; :func:`composite` then launches `csrc/composite.cu` for CUDA
-tensors, with each tile's plane interval from :func:`tile_plane_bounds`,
-or runs :func:`composite_plain` for CPU tensors.
+volume (K12, `preshear.preshear`; the JAX package leaves this to banded
+einsums outside its kernel), computes the per-pixel step and clip fields,
+the per-plane coefficients and the per-chunk occupancy flags from the
+planes' conservative value ranges; :func:`composite` then launches
+`csrc/composite.cu` for CUDA tensors, with each tile's plane interval
+from :func:`tile_plane_bounds`, or runs :func:`composite_plain` for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ import torch
 
 from ..utils.device import to_device
 from ..utils.profiling import COMPOSITE, PRESHEAR, TILE_BOUNDS, span
-from . import _kernels
+from . import _kernels, preshear
 from .compositing import EARLY_TERMINATION_ALPHA
 from .sampling import VOLUME_DENSITY
-from .shearwarp import (ShearWarpPlan, _pad_to, _resample_block,
-                        _resample_matrices, _t, _volume_planes, columns,
-                        plane_dtype, rebased_columns)
+from .shearwarp import (ShearWarpPlan, _resample_matrices, _t,
+                        _volume_planes, columns, plane_dtype,
+                        rebased_columns)
 from .transfer import windowed_tf_range_occupied
 
 KB = 16  # planes per occupancy chunk
@@ -246,7 +247,10 @@ def composite_plain(W, L, tf_table, pa, occ, e1, step_world, jitter, win,
         m = cube & ((e0 + lam_px * e1) > 0.0) & ~term
         if depth_lam is not None:
             m = m & (lam_px <= depth_lam)
-        tf_pos = (value - center + width * 0.5) / width
+        # by the width as a tensor: PyTorch divides a CUDA tensor by a
+        # Python number as a product with its reciprocal, an ulp off the
+        # kernel's division, which can flip a pixel's 0.95 snap
+        tf_pos = (value - center + width * 0.5) / win[1]
         if stats is not None:
             stats["steps"] += int((~term).sum())
             stats["samples"] += int(m.sum())
@@ -364,8 +368,8 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
                       windowing_vec4, clip_center, clip_direction,
                       early_termination: float = EARLY_TERMINATION_ALPHA,
                       compute_dtype=None, jitter=None, depth_lam=None,
-                      mode: str = "lit",
-                      sample_nearest: bool = False) -> dict:
+                      mode: str = "lit", sample_nearest: bool = False,
+                      slice_range=None) -> dict:
     """The keyword arguments of :func:`composite` for one frame.
 
     ``compute_dtype`` is the storage type of the pre-sheared planes (None:
@@ -375,49 +379,37 @@ def prepare_composite(volume, tf_table, light_volume, plan: ShearWarpPlan,
     (`shearwarp.depth_to_lambda_max`). ``mode``: "lit", "unlit" or
     "intensity"; the light planes are built in lit mode only
     (``light_volume`` is not read otherwise), and in intensity mode every
-    chunk counts as occupied (a hit needs no alpha). ``sample_nearest``:
-    the pre-shear selects the nearest texel (the octree mode).
+    chunk counts as occupied (a hit needs no alpha), elsewhere the chunks'
+    value ranges come from the volume's per-slice ranges
+    (`preshear.plane_value_ranges`): ``slice_range``, the volume's
+    `preshear.slice_ranges` across ``plan.axis`` where the caller keeps
+    them (the Renderer), else reduced here. ``sample_nearest``: the
+    pre-shear selects the nearest texel (the octree mode).
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
     dev = volume.device
     compute_dtype = plane_dtype(compute_dtype, dev)
-    n1, n2, K = plan.n1, plan.n2, plan.k
-    Kp = _ceil_to(K, KB)
-    jitter_on = jitter is not None
-    Kbuf = Kp + 1 if jitter_on else Kp
-
-    ax = (plan.axis,) + tuple(plan.axes12)
+    K = plan.k
+    Kbuf = _ceil_to(K, KB) + (1 if jitter is not None else 0)
 
     # The streams are edge-padded to Kbuf planes (the jittered last plane
-    # lerps toward a copy of itself; other padding is masked). Repeating the
-    # last plane's slice and coefficients before the resample gives those
-    # copies without a second pass over the streams.
-    def coeff(name):
-        return _pad_to(_t(getattr(plan, name), dev), Kbuf)
-
-    with span(PRESHEAR):
-        vplanes = _volume_planes(volume.permute(ax), plan,
-                                 nearest=sample_nearest)
-        W = _resample_block(_pad_to(vplanes, Kbuf), coeff("a1"), coeff("b1"),
-                            coeff("a2"), coeff("b2"), n1, n2, compute_dtype,
-                            nearest=sample_nearest, j0=plan.j0)
-        L = None
-        if mode == "lit":
-            light_t = light_volume.permute(ax)
-            lm0 = _t(plan.lm0, dev)
-            l0 = light_t[lm0]
-            l1 = light_t[(lm0 + 1).clamp(max=light_t.shape[0] - 1)]
-            lmt = _t(plan.lmt, dev)[:, None, None]
-            lplanes = l0 * (1.0 - lmt) + l1 * lmt
-            L = _resample_block(_pad_to(lplanes, Kbuf), coeff("la1"),
-                                coeff("lb1"), coeff("la2"), coeff("lb2"), n1,
-                                n2, compute_dtype, j0=plan.j0)
+    # lerps toward a copy of itself; other padding is masked): the planes
+    # past K repeat the last plane's slices and coefficients.
+    lit = mode == "lit"
+    with span(PRESHEAR):  # K12, looked up at call time
+        vs, ls = preshear.plan_streams(plan, Kbuf, volume.shape,
+                                       light_volume.shape if lit else None,
+                                       sample_nearest, dev)
+        W = preshear.preshear(volume, vs, compute_dtype)
+        L = preshear.preshear(light_volume, ls, compute_dtype) if lit \
+            else None
 
     value_range = None
-    if mode != "intensity":  # plan data: detached, it takes no gradient
-        vp = vplanes.detach()
-        value_range = (vp.amin((1, 2)), vp.amax((1, 2)))
+    if mode != "intensity":  # plan data: it takes no gradient
+        if slice_range is None:
+            slice_range = preshear.slice_ranges(volume, plan.axis)
+        value_range = preshear.plane_value_ranges(slice_range, vs, K)
     return composite_args(
         plan, W, L, tf_table, windowing_vec4, value_range, clip_center,
         clip_direction, early_termination, jitter, depth_lam, mode,
@@ -615,12 +607,13 @@ def shearwarp_intermediate_fused(volume, tf_table, light_volume,
                                  early_termination: float = EARLY_TERMINATION_ALPHA,
                                  compute_dtype=None, jitter=None,
                                  depth_lam=None, mode: str = "lit",
-                                 sample_nearest: bool = False) -> torch.Tensor:
+                                 sample_nearest: bool = False,
+                                 slice_range=None) -> torch.Tensor:
     """Shear-warp composite -> (4, n1, n2), the layout
     `warp.warp_to_screen_fused` reads; see :func:`prepare_composite`
     (``light_volume`` may be None outside lit mode)."""
     ops = prepare_composite(volume, tf_table, light_volume, plan,
                             windowing_vec4, clip_center, clip_direction,
                             early_termination, compute_dtype, jitter,
-                            depth_lam, mode, sample_nearest)
+                            depth_lam, mode, sample_nearest, slice_range)
     return composite(**ops)

@@ -75,6 +75,16 @@ class ShearWarpPlan:
     pdrow: np.ndarray
     j0: int = 0  # the first column of a column slab (see above)
 
+    def memo(self, key, make):
+        """``make()``, made once for ``key`` and kept with this plan: what a
+        frame derives from the plan alone, such as the pre-shear's device
+        arrays (`preshear.plan_streams`). Not a field: a replaced plan
+        (`dataclasses.replace`) keeps nothing of it."""
+        kept = self.__dict__.setdefault("_memo", {})
+        if key not in kept:
+            kept[key] = make()
+        return kept[key]
+
 
 def rebased_columns(plan: ShearWarpPlan):
     """(a2, la2, o2) re-based to the slab's local column 0, float32 as the

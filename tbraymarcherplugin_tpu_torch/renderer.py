@@ -44,6 +44,7 @@ from .ops import fused_march as FM
 from .ops import lighting as L
 from .ops import march as M
 from .ops import octree as O
+from .ops import preshear as PS
 from .ops import shearwarp as SW
 from .ops.composite import shearwarp_intermediate_fused
 from .ops.rays import jitter_values, setup_rays
@@ -173,6 +174,8 @@ class Renderer(nn.Module):
         self._lights_dirty = True
         self._sw_key = None
         self._sw_plan = None
+        # the frame volume's per-slice ranges (`_slice_range`)
+        self._ranges_of, self._ranges = None, {}
         # the occupancy grid of empty-space skipping, built from the octree
         # on the second frame with the same volume, TF and window
         # (`_occ_due`) and dropped when they change
@@ -250,6 +253,7 @@ class Renderer(nn.Module):
         self._lights_dirty = True
         self._octree_dirty = True
         self._drop_occupancy()
+        self._ranges_of, self._ranges = None, {}
 
     def set_tf(self, tf_table):
         self.tf_table = torch.as_tensor(tf_table, dtype=torch.float32,
@@ -519,6 +523,20 @@ class Renderer(nn.Module):
             self._sw_key = key
         return self._sw_plan
 
+    def _slice_range(self, vol, axis: int):
+        """The frame volume's per-slice (min, max) across ``axis``
+        (`preshear.slice_ranges`), which the chunk occupancy reads: kept
+        while the Renderer holds the same volume (or, in octree mode, the
+        same octree), so that its frames reduce it once."""
+        held = self.octree if self.config.render_mode == "octree" \
+            else self.volume
+        if self._ranges_of is not held:
+            self._ranges_of, self._ranges = held, {}
+        key = (self.config.render_mode, self.config.octree_mip, axis)
+        if key not in self._ranges:
+            self._ranges[key] = PS.slice_ranges(vol, axis)
+        return self._ranges[key]
+
     def _mode_volume(self) -> torch.Tensor:
         """The volume an intensity or octree frame composites: the volume;
         in octree mode mip ``octree_mip`` of the pow2-padded max pyramid
@@ -565,6 +583,8 @@ class Renderer(nn.Module):
             mode={"lit": "lit", "intensity": "intensity",
                   "octree": "unlit"}[mode],
             sample_nearest=mode == "octree",
+            slice_range=None if mode == "intensity"
+            else self._slice_range(vol, plan.axis),
         )
         return warp_to_screen_fused(inter, plan, width, height)
 

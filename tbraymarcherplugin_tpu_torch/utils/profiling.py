@@ -54,6 +54,7 @@ COMPOSITE_BWD = "tbr.composite_bwd"  # K5
 LIGHT_SCAN_BWD = "tbr.light_scan_bwd"  # K7
 TF_ALPHA_BWD = "tbr.tf_alpha_bwd"  # K8
 WARP_BWD = "tbr.warp_bwd"  # K6
+PRESHEAR_BWD = "tbr.preshear_bwd"  # K12's adjoint
 # a slab-sharded Renderer (parallel/): each span's args end in the bytes
 # this rank sent
 HALO = "tbr.halo"  # the volume's halo planes, when exchanged
